@@ -1,10 +1,10 @@
 // Native BVH builder: binned-SAH BVH2 (+ SBVH spatial splits) + wide
 // collapse emitters.
 //
-// TPU-native counterpart of the reference's tinybvh C plugin
+// Counterpart of the reference's tinybvh C plugin
 // (Assets/Plugins/Web/plugin.cpp) — same role (host-side acceleration
 // structure construction, called through an FFI boundary), new
-// implementation emitting the SoA node layout the TPU traversal consumes
+// implementation emitting the SoA node layout the JAX traversal consumes
 // (see unity_webgpu_pathtracer_tpu/accel/mbvh.py for the format contract):
 //   bounds[n*48 .. ] = [lox*8 | loy*8 | loz*8 | hix*8 | hiy*8 | hiz*8]
 //   child[n*8 + k]   = 0 empty, c>0 inner node (c-1), c<0 leaf -(off*16+cnt)
@@ -874,13 +874,11 @@ namespace {
 
 static inline uint16_t f2h(float f) {
   // Round-to-nearest-even float32 -> float16 (matches numpy astype), then
-  // canonicalized to the table contract the TPU fast decode relies on
-  // (ops/pallas_arrival.py::_f16_bits_to_f32): NO subnormals or -0 (both
-  // flush to +0 — offsets < 6.1e-5 world units are below the f16
-  // quantization noise anyway) and NO inf/nan (clamped to +-65504, the
-  // round-2 advisor's build-time-finiteness alternative).  The jnp
-  // traversal path reads the same canonicalized table through the
-  // hardware f16 conversion, so both paths stay bit-identical.
+  // canonicalized to the table contract (accel/wide16.py::_canon_f16): NO
+  // subnormals or -0 (both flush to +0 — offsets < 6.1e-5 world units are
+  // below the f16 quantization noise anyway) and NO inf/nan (clamped to
+  // +-65504).  The numpy emitter applies the same rule, so both builders
+  // emit bit-identical tables.
   uint32_t x;
   std::memcpy(&x, &f, 4);
   uint32_t sign = (x >> 16) & 0x8000u;
@@ -1108,14 +1106,13 @@ extern "C" int build_wide8(const float* positions, const float* tri_records,
 namespace {
 
 // SAH-optimal 16-wide collapse (Ylitie/Karras/Laine 2017 Sec. 3, adapted
-// to this machine's cost model: EVERY arrival -- inner or leaf -- costs
-// one fixed-price row gather + kernel wave, and a leaf row's 16 MT slots
+// to the wavefront traversal's cost model: EVERY arrival -- inner or leaf
+// -- costs one row gather per lane, and a leaf row's 16 MT slots
 // are pre-paid whether occupied or not.  The objective is therefore the
 // SA-weighted expected ARRIVAL count: c_leaf = one arrival for any leaf
 // of <= LEAF refs (merging small sibling subtrees into one fuller leaf is
 // free), c_node = one arrival per visited inner row.  The greedy
-// largest-area collapse this replaces measured fan-out 4.8/16 and leaf
-// fill 11.1/16 on the 1M-tri bench scene.
+// largest-area collapse this replaces leaves many of the 16 slots empty.
 //
 // Tables per BVH2 node:
 //   cdist[i] (i>=2): best cost of splitting the subtree into 2..i roots

@@ -27,11 +27,9 @@ import os
 
 import numpy as np
 
-if os.environ.get("UWPT_GOLDEN_NATIVE_BACKEND") != "1":
-    # Fixtures are CPU-rendered; the TPU golden smoke
-    # (tests/test_tpu_hardware.py) sets the flag to run this machinery on
-    # the real chip instead.
-    import tests.conftest  # noqa: F401  (CPU backend)
+# Importing this module leaves the backend alone: pytest (tests/conftest.py)
+# and golden_gen pin the CPU, and chip_smoke.py renders the same scenes on
+# the GPU.
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 SIZE = 64
@@ -102,8 +100,8 @@ def build_scene(name):
 def render_pass_means(name, seed_roots, config_overrides=None) -> np.ndarray:
     """(len(seed_roots), SIZE, SIZE, 3) independent per-pass mean images.
 
-    ``config_overrides``: dataclasses.replace kwargs on the golden config
-    (the TPU golden smoke turns the production Pallas kernels on)."""
+    ``config_overrides``: dataclasses.replace kwargs on the golden
+    config."""
     import dataclasses
 
     import jax

@@ -20,6 +20,7 @@ import sys
 
 import numpy as np
 
+import tests.conftest  # noqa: F401  (fixtures are rendered on the CPU)
 from tests.golden_common import (
     GEN_SEED_BASE,
     GOLDEN_DIR,

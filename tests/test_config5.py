@@ -52,8 +52,7 @@ def test_config5_reprojection_on_sharded_film():
     scene, cam = cornell_box()
     config = RenderConfig(
         width=SIZE, height=SIZE, samples_per_pass=4, max_bounces=3,
-        sky_mode=2, traversal="wide16", integrator="fused", pool_size=512,
-        use_pallas_arrival=True)
+        sky_mode=2, traversal="wide16", integrator="fused", pool_size=512)
     scene_data = scene.build(config.traversal)
     params0 = make_camera_params(width=SIZE, height=SIZE, **cam)
     eye = np.asarray(cam["eye"], np.float64)

@@ -71,7 +71,7 @@ def test_golden_detector_catches_global_gain():
 
 
 def test_golden_detector_catches_flipped_mis():
-    """Meta-test for the target bug class (VERDICT r3 item 4): flip the
+    """Meta-test for the target bug class: flip the
     MIS power heuristic (a^2/(a^2+b^2) -> b^2/(a^2+b^2)) in the live
     integrator and render fresh passes end-to-end — the suite must fail.
 
@@ -109,7 +109,7 @@ def test_golden_detector_catches_flipped_mis():
 
 
 def test_golden_detector_catches_localized_spot_cone_bug():
-    """Meta-test for the LOCALIZED bug class (VERDICT r4 weak #5): a
+    """Meta-test for the LOCALIZED bug class: a
     broken spot-cone fade confined to one light's footprint must still
     trip the "lights" scene gate.  Two severities, both rendered live:
 

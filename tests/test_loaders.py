@@ -241,7 +241,7 @@ def test_glb_heavy_asset_end_to_end(tmp_path):
     """Helmet/Sponza-class topology through the loader: a multi-primitive
     mesh (~20k tris: sphere grid + long thin ground strips + a degenerate-UV
     patch), nested nodes, JPEG texture — loaded, BVH-built and rendered
-    (VERDICT round-1 gap: loaders were only exercised on 1-quad blobs)."""
+    (beyond 1-quad blobs)."""
     import jax
 
     from unity_webgpu_pathtracer_tpu.config import RenderConfig

@@ -107,11 +107,10 @@ def test_multichip_fused_equals_single_chip():
 
 
 def test_multichip_fused_flagship_wide16():
-    """The SHIPPED flagship config (fused + wide16 + prestep + Pallas
-    interpret + sorted-prefix film, all config defaults) sharded over
+    """The SHIPPED flagship config (fused + wide16 + prestep + record
+    film, all config defaults) sharded over
     (tile, spp) must match the single-chip film to 1 ulp (sample radiance
-    is bitwise; only scatter association differs across the psum) —
-    verdict item 4's test."""
+    is bitwise; only scatter association differs across the psum)."""
     import jax
     import numpy as np
 
@@ -133,7 +132,7 @@ def test_multichip_fused_flagship_wide16():
         return RenderConfig(
             width=size, height=size, samples_per_pass=spp, max_bounces=3,
             traversal="wide16", sky_mode=2, integrator="fused",
-            pool_size=1024, use_prestep=True, use_pallas_arrival=True,
+            pool_size=1024, use_prestep=True,
         )
 
     mesh = make_mesh(n_tile=4, n_spp=2)
@@ -177,7 +176,7 @@ def test_multichip_fused_record_film():
         return RenderConfig(
             width=size, height=size, samples_per_pass=spp, max_bounces=3,
             traversal="wide16", sky_mode=2, integrator="fused",
-            pool_size=1024, use_prestep=True, use_pallas_arrival=True,
+            pool_size=1024, use_prestep=True,
             use_record_film=True, film_k_shift=0,
         )
 

@@ -80,7 +80,7 @@ def test_f2h_parity_fuzz():
     """The C++ builder's f2h and the numpy fallback's canonical-f16 path
     must be BIT-IDENTICAL on every input class (normals, subnormals,
     +-0, inf, NaN, round-to-overflow values like 65520.0) — tables built
-    by either path feed the same Pallas fast decode, whose contract
+    by either path feed the same traversal, whose table contract
     (no subnormals/-0, no inf/nan) both emitters implement independently
     in two languages.  A deliberate divergence here must fail."""
     import warnings
@@ -113,7 +113,7 @@ def test_f2h_parity_fuzz():
     x = np.concatenate([bits.view(np.float32), edges])
 
     got = native_f2h_or_none(x)
-    assert got is not None, "stale libtpubvh.so without f2h_batch: make -C native"
+    assert got is not None, "stale libuwptbvh.so without f2h_batch: make -C native"
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # overflow-in-cast is the point
         ref = _canon_f16(x.astype(np.float16))
@@ -121,3 +121,34 @@ def test_f2h_parity_fuzz():
     assert not bad.any(), (
         f"{int(bad.sum())} mismatches; first: "
         f"x={x[bad][0]!r} cpp={hex(got[bad][0])} numpy={hex(ref[bad][0])}")
+
+
+def test_stale_library_is_rebuilt(tmp_path, monkeypatch):
+    """A library older than its source is rebuilt on first load, not
+    loaded stale (a library copied from another checkout, say)."""
+    import os
+    import shutil
+
+    from unity_webgpu_pathtracer_tpu.accel import native
+
+    for name in ("Makefile", "bvh_builder.cpp"):
+        shutil.copy(os.path.join(native._NATIVE_DIR, name), tmp_path)
+    lib = str(tmp_path / os.path.basename(native._LIB_PATH))
+    src = str(tmp_path / "bvh_builder.cpp")
+    monkeypatch.setattr(native, "_NATIVE_DIR", str(tmp_path))
+    monkeypatch.setattr(native, "_LIB_PATH", lib)
+    monkeypatch.setattr(native, "_SRC_PATH", src)
+    monkeypatch.setenv("CXXFLAGS", "-O0 -fPIC -std=c++17")
+    monkeypatch.setattr(native, "_TRIED", False)
+    monkeypatch.setattr(native, "_LIB", None)
+    assert native._stale()                      # no library yet
+    assert native._load() is not None
+    assert not native._stale()
+
+    old = os.path.getmtime(src) - 100.0         # the source is now newer
+    os.utime(lib, (old, old))
+    assert native._stale()
+    monkeypatch.setattr(native, "_TRIED", False)
+    assert native._load() is not None
+    assert os.path.getmtime(lib) > old
+    assert not native._stale()

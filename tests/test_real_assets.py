@@ -42,9 +42,7 @@ def _is_lfs_stub(path: str) -> bool:
 
 def _render_production(scene, size=48, spp=2, bounces=3):
     """Render with the production config (fused + wide16 + prestep +
-    record film; Pallas arrivals in interpret mode on CPU are correct but
-    ~100x slower, so the XLA arrival path stands in — same traversal
-    states bit-for-bit, tests/test_pallas_arrival.py covers the kernel)."""
+    record film)."""
     import jax
 
     from unity_webgpu_pathtracer_tpu.config import RenderConfig

@@ -62,7 +62,7 @@ def _wait_spp(base, minimum, timeout=120):
 def test_viewer_serves_page_and_frames(viewer_server):
     _v, base = viewer_server
     page, ctype = _get(base, "/")
-    assert b"tpu pathtracer" in page and ctype == "text/html"
+    assert b"<title>path tracer</title>" in page and ctype == "text/html"
     _wait_spp(base, 2)
     png, ctype = _get(base, "/frame.png")
     assert ctype == "image/png" and png[:8] == b"\x89PNG\r\n\x1a\n"

@@ -1,9 +1,8 @@
 """wide16 leaf8 variant (48-float rows, 8-triangle leaves): build
-invariants, traversal equivalence, and Pallas kernel parity.
+invariants and traversal equivalence.
 
-The full wide16 + Pallas suites also pass wholesale under
-``UWPT_WIDE16_LEAF8=1`` (30 tests re-run at format introduction); these
-tests pin the variant explicitly so CI covers it by default.
+The full wide16 suite also passes wholesale under ``UWPT_WIDE16_LEAF8=1``;
+these tests pin the variant explicitly so CI covers it by default.
 """
 
 import numpy as np
@@ -19,7 +18,6 @@ from unity_webgpu_pathtracer_tpu.accel.wide16 import (
 )
 from unity_webgpu_pathtracer_tpu.ops import traverse_wide16 as tw16
 from unity_webgpu_pathtracer_tpu.ops.intersect import closest_hit_bruteforce
-from unity_webgpu_pathtracer_tpu.ops.pallas_arrival import arrival_step16_pallas
 from unity_webgpu_pathtracer_tpu.utils.math import FAR_PLANE, safe_rcp
 
 from tests.test_wide8 import random_rays, random_tris, recs_of
@@ -71,31 +69,6 @@ def test_leaf8_matches_bruteforce(n, thresh):
     idb = scene.order[np.maximum(np.asarray(slotb), 0)]
     same = (hit16 == hitb) & (~hitb | (id16 == idb))
     assert same.mean() >= thresh, f"only {same.mean():.4f} agree"
-
-
-@pytest.mark.parametrize("steps", [1, 8, 40])
-def test_leaf8_pallas_matches_jnp(steps):
-    tris = random_tris(3000, seed=21)
-    sc = Leaf8Scene(tris)
-    o, d = random_rays(4096, seed=22)
-    o, d = jnp.asarray(o), jnp.asarray(d)
-    inv = safe_rcp(d)
-    s_ref = tw16.init_state16(4096, jnp.float32(FAR_PLANE), depth=14)
-    s_pal = s_ref
-    for _ in range(steps):
-        s_ref = tw16.arrival_step16(sc.wide16_nodes, o, d, inv, s_ref,
-                                    None, has_instances=False)
-        s_pal = arrival_step16_pallas(sc.wide16_nodes, o.T, d.T, inv.T,
-                                      s_pal, None, interpret=True,
-                                      transpose_in_kernel=True)
-    t_r, t_p = np.asarray(s_ref.t), np.asarray(s_pal.t)
-    assert np.allclose(t_r, t_p, rtol=1e-5, atol=1e-5), (
-        np.abs(t_r - t_p).max())
-    for name in ("ptr", "pend", "sp", "tri", "found"):
-        a = np.asarray(getattr(s_ref, name))
-        p = np.asarray(getattr(s_pal, name))
-        frac = (a == p).mean()
-        assert frac >= 0.995, (name, frac)
 
 
 def test_leaf8_tlas_instanced_build():

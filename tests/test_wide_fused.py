@@ -128,7 +128,7 @@ def test_fused_deterministic():
 def test_fused_table_carry_parity():
     """node_carry / env_carry re-stage gather layouts only — films must be
     bit-identical to the closure-captured tables (the attr_carry
-    contract, extended round 16)."""
+    contract)."""
     import jax
 
     from unity_webgpu_pathtracer_tpu.models.benchmark import million_triangle_scene

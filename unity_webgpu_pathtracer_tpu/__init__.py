@@ -1,19 +1,21 @@
-"""TPU-native progressive Monte-Carlo path-tracing framework.
+"""Progressive Monte-Carlo path-tracing framework in JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 ``brendan-duncan/unity_webgpu_pathtracer`` (a Unity 6 + WebGPU HLSL megakernel
-path tracer, see ``SURVEY.md``), re-architected TPU-first:
+path tracer, see ``SURVEY.md``), running on NVIDIA GPUs:
 
-* **wavefront integration** — per-bounce jitted stages over a flat ray pool
-  with path regeneration into dead lanes (replaces the reference's divergent
-  per-pixel megakernel, ``Assets/Resources/util/pathtrace.hlsl:25-128``),
-* **8-wide SoA BVH traversal** — batched ``lax.while_loop`` + Pallas kernels
-  over flat HBM-resident node arrays (replaces the HLSL CWBVH stack traversal,
+* **fused wavefront integration** — one ``lax.while_loop`` interleaving
+  traversal arrivals and shading transitions over a flat ray pool with path
+  regeneration into dead lanes (replaces the reference's divergent per-pixel
+  megakernel, ``Assets/Resources/util/pathtrace.hlsl:25-128``),
+* **16-wide quantized BVH traversal** — batched per-lane stacks over flat
+  node rows in device memory (replaces the HLSL CWBVH stack traversal,
   ``Assets/Resources/util/bvh.hlsl:141-197``),
 * **host-side C++/numpy BVH builders** (replaces the tinybvh C plugin,
   ``Assets/Plugins/Web/plugin.cpp``),
-* **multi-chip film tiling / sample sharding** over a ``jax.sharding.Mesh``
-  with ICI collectives (no analogue in the single-GPU reference).
+* **multi-device film tiling / sample sharding** over a
+  ``jax.sharding.Mesh`` with collectives (no analogue in the single-GPU
+  reference).
 
 Public entry points:
 

@@ -53,8 +53,7 @@ def build_scene_wide_bvh(positions: np.ndarray, tri_records: np.ndarray,
     ``tri_records`` are the (F, 9) [e2,e1,v0] rows in *original* order;
     leaf rows inline them together with the original attribute index.
     ``octants`` ∈ {1, 8}: 8 gives near-first DFS per ray octant (fewer
-    arrivals/ray) at 8x the table bytes — for small scenes the single-order
-    table stays cache-resident and wins (measured on v5e).
+    arrivals/ray) at 8x the table bytes.
     Returns ``(octants, N, 48)`` float32.
     """
     from unity_webgpu_pathtracer_tpu.accel import bvh2, wide

@@ -5,7 +5,7 @@ Same algorithm family as the reference's vendored tinybvh builder
 SAH sweep with cost ``c_trav + c_int · (N_L·SA_L + N_R·SA_R)/SA_parent``,
 in-place partition; leaves capped at ``leaf_size`` triangles (the reference
 splits to ≤3, ``SplitLeafs(3)``; we default to 4 so leaf intersection is a
-uniform 4-wide VPU op).
+uniform 4-wide vector op).
 
 This is the always-available host builder; ``accel.native`` provides the
 C++ fast path for large scenes.

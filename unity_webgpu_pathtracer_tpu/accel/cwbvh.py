@@ -15,9 +15,8 @@ Emits the exact 80-byte / 5×float4 node records the reference traverses
 * triangles as ``[e2-v0? no: e2, e1, v0|bits(triIdx)]`` float4 triples
   (:5963-5968) — the same records the renderer's flat ``tris`` hold.
 
-On TPU the byte-unpack decode costs VPU work to save 2.4x HBM (vs the
-fat-row format); the primary traversal keeps full-precision rows and this
-module serves as (a) the byte-exact reference-format exporter, (b) the
+The byte-unpack decode trades arithmetic for 2.4x fewer bytes than the
+fat-row format; this module serves as (a) the byte-exact reference-format exporter, (b) the
 quantization-correctness oracle (decoded child bounds must conservatively
 contain the exact bounds).
 """

@@ -1,8 +1,8 @@
 """DFS linearization of the BVH2 with skip pointers (threaded BVH).
 
-Per-ray stacks need scatter writes and sorted pushes — both pathological on
-TPU (arbitrary-index scatters serialize; 8-lane argsort per ray per step
-dominates the traversal loop).  A threaded BVH removes the stack entirely:
+Per-ray stacks need scatter writes and sorted pushes — both costly in a
+batched program (arbitrary-index scatters may serialize; an 8-lane argsort
+per ray per step dominates the traversal loop).  A threaded BVH removes the stack entirely:
 nodes are laid out in depth-first order and every node stores the index to
 jump to when its subtree is skipped.  Per traversal step each ray does ONE
 contiguous 32-byte row gather and advances ``ptr -> ptr+1`` (enter) or

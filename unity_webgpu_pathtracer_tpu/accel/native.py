@@ -4,7 +4,8 @@ The reference builds BVHs in a C plugin called through P/Invoke
 (``Assets/Scripts/util/TinyBVH.cs``); here the native builder is optional —
 ``native_build_or_none`` returns None when the shared library is missing and
 the numpy builder takes over.  Build with ``make -C native`` (see
-``native/Makefile``); the import also attempts a one-time build.
+``native/Makefile``); the first load builds the library when it is
+missing or older than its source.
 """
 
 from __future__ import annotations
@@ -20,8 +21,16 @@ _TRIED = False
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libtpubvh.so")
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libuwptbvh.so")
 _SRC_PATH = os.path.join(_NATIVE_DIR, "bvh_builder.cpp")
+
+
+def _stale() -> bool:
+    """True when the library is missing or older than its source."""
+    try:
+        return os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC_PATH)
+    except OSError:
+        return True
 
 
 def _load():
@@ -29,7 +38,7 @@ def _load():
     if _TRIED:
         return _LIB
     _TRIED = True
-    if not os.path.exists(_LIB_PATH):
+    if _stale():
         try:
             subprocess.run(
                 ["make", "-C", _NATIVE_DIR, "-s"],
@@ -256,8 +265,8 @@ def native_f2h_or_none(vals: np.ndarray) -> np.ndarray | None:
     Test hook for the two-implementation invariant: the numpy fallback
     emitters (``accel.wide16._canon_f16`` applied after np.float16 RNE)
     and the native builder's ``f2h`` must stay BIT-IDENTICAL on every
-    input class, or tables built by one path silently break the Pallas
-    fast decode's contract (tests/test_native.py::test_f2h_parity_fuzz).
+    input class, or tables built by one path silently break the table
+    contract (tests/test_native.py::test_f2h_parity_fuzz).
     Returns None when the library (or a stale build without the symbol)
     is unavailable.
     """

@@ -1,8 +1,8 @@
-"""Fat-row 4-ary BVH ("wide") — the TPU production traversal format.
+"""Fat-row 4-ary BVH ("wide") — a frozen traversal format.
 
-Measured machine facts (v5e, XLA gather): a batched row gather costs ~3 ms
-fixed + ~3 ns/row *independent of row width up to ≥224 B*.  Therefore the
-format optimizes for ONE gather per traversal arrival:
+The format optimizes for ONE row gather per traversal arrival, on the
+premise that a batched row gather costs about the same whatever the row
+width (up to a few hundred bytes):
 
 * internal rows carry all four children's AABBs + their DFS indices, so one
   gather tests four subtrees;

@@ -1,20 +1,16 @@
-"""16-wide quantized BVH ("wide16") — round-3 production traversal format.
+"""16-wide quantized BVH ("wide16") — the production traversal format.
 
 Same design as :mod:`accel.wide8` (CWBVH-style quantized children,
 per-lane register stacks, ``tiny_bvh.h:5909-5931`` format lineage) but
-doubled on both axes the round-3 gather matrix identified as FREE on this
-chip (experiments/round3_gather.py): a 384-byte row gathers at the same
-~17 ns/row as a 192-byte row, so
+doubled on both axes, on the premise that a 384-byte row gathers at about
+the per-row price of a 192-byte row:
 
 * **16 children per inner node** — the tree is one level shallower per
-  descent and sibling culling tests 16 boxes per gather (slab math rides
-  the VPU, which is effectively free at these batch sizes);
-* **16 triangles per leaf row** — half the leaf arrivals of wide8 at the
-  same per-arrival price.
+  descent and sibling culling tests 16 boxes per gather;
+* **16 triangles per leaf row** — half the leaf arrivals of wide8.
 
-Fewer arrivals per ray is the whole game: arrivals are gather-latency
-bound and dominate the fused integrator's cost profile
-(docs/PERFORMANCE.md round-3 section).
+Fewer arrivals per ray is the aim: every arrival is one dependent row
+gather per lane.
 
 Child-visit order is **true nearest-first**: the traversal picks the hit
 child with the smallest slab entry t (argmin over the 16 lanes) instead of
@@ -66,11 +62,9 @@ OFF_BLAS = 16
 # The inner layout above occupies words 0..47 exactly (anchor 3, meta,
 # exps, qbox 24, ptrs 16), so halving the LEAF slot count to 8 (9 comps x
 # 8 f16 = 36 words at 4:40, attr idx x8 at 40:48) packs both kinds into a
-# 48-float row: HALF the node-gather HBM traffic per arrival (the 8
-# per-arrival f32[B,96] gathers were 26% of the super-iteration in the
-# round-15 trace) and HALF the leaf Moller-Trumbore VPU work (46% of the
-# Pallas arrival kernel), traded against ~10-15% more leaf arrivals from
-# splitting 9..16-triangle leaves.  Consumers dispatch on
+# 48-float row: HALF the node-gather traffic per arrival and HALF the leaf
+# Moller-Trumbore work, traded against more leaf arrivals from splitting
+# 9..16-triangle leaves.  Consumers dispatch on
 # ``nodes.shape[-1]`` (96 = classic, 48 = leaf8); the instance-row layout
 # (w2l at 4:16, blas root at 16) is unchanged and fits either width.
 ROW8 = 48
@@ -106,9 +100,9 @@ def _collapse16(bvh: BVH2, node: int, counts: np.ndarray,
 
 
 def _canon_f16(h: np.ndarray) -> np.ndarray:
-    """Canonicalize f16 bit patterns to the table contract of the TPU fast
-    decode (ops/pallas_arrival.py::_f16_bits_to_f32): subnormals and -0
-    flush to +0 (below quantization noise), inf/nan clamp to +-65504."""
+    """Canonicalize f16 bit patterns: subnormals and -0 flush to +0 (below
+    quantization noise), inf/nan clamp to +-65504, so every decoder sees
+    only normal values and zero."""
     hb = h.view(np.uint16)
     hb = np.where((hb & 0x7C00) == 0, np.uint16(0), hb)
     hb = np.where((hb & 0x7C00) == 0x7C00,
@@ -118,11 +112,9 @@ def _canon_f16(h: np.ndarray) -> np.ndarray:
 
 # Slot <-> storage-position permutations (SPLIT slot order).
 #
-# The Pallas arrival kernel assembles each decoded (16, BLK) block from
-# sublane rows; with the natural order (halfword/byte position == slot) it
-# needs a 16-way single-row interleave per component — measured 12.4% of
-# the whole kernel (experiments/round14_kernel_diet.py, leaf_noint).  The
-# SPLIT order stores:
+# The SPLIT order lets a decoder that works on whole (16, lanes) blocks
+# assemble them with a few in-order concatenations instead of a 16-way
+# interleave per component.  It stores:
 #
 # * leaf f16: word w carries (slot w, slot w+8) -> decode is
 #   concat([lo-halves (8,BLK), hi-halves (8,BLK)]) — 1 concat, in order;
@@ -306,13 +298,13 @@ def _decode_top_row(nodes: np.ndarray, p: int, out: np.ndarray) -> None:
 
 
 def derive_top3_limbs(nodes: np.ndarray, top: np.ndarray | None):
-    """Level-3 slot table for the MXU one-hot prestep: (3, 256, TOP_COLS)
+    """Level-3 slot table for the one-hot-matmul prestep: (3, 256, TOP_COLS)
     float32 carrying the 3 bf16 limbs (hi, mid, lo) of the decoded rows of
     every grandchild slot ``k1*16 + k2``.  The 3-limb split reconstructs
     f32 EXACTLY (8+8+8 mantissa bits cover f32's 24), so a bf16 one-hot
-    matmul against the limbs is a bit-exact 256-row gather that rides the
-    MXU instead of a ~2 ms 256-step select chain.  Returns None when the
-    scene has no level-2 inner rows."""
+    matmul against the limbs is a bit-exact 256-row gather instead of a
+    256-step select chain.  Returns None when the scene has no level-2
+    inner rows."""
     if top is None:
         return None
     import ml_dtypes
@@ -387,7 +379,7 @@ def build_scene_wide16(positions: np.ndarray, tri_records: np.ndarray,
     the default (A/B harness knob).
 
     ``leaf8`` selects the 48-float-row variant (8-triangle leaves, half
-    the gather traffic and leaf VPU work per arrival — see the ROW8 block
+    the gather traffic and leaf arithmetic per arrival — see the ROW8 block
     comment); ``UWPT_WIDE16_LEAF8`` overrides the default.
 
     ``UWPT_COLLAPSE=dp|greedy`` selects the wide-collapse strategy in the
@@ -438,8 +430,8 @@ def build_scene_wide16(positions: np.ndarray, tri_records: np.ndarray,
 _BVH_CACHE_VERSION = 1
 
 # Observability: build_scene_wide16 counts disk-cache hits/misses here so
-# bench.py can report `bvh_cache` in its JSON artifact (a silent cold
-# cache looked like a 19.8s "regression" in BENCH_r04).
+# bench.py can report `bvh_cache` in its JSON line (a silently cold cache
+# otherwise reads as a scene-build regression).
 CACHE_STATS = {"hit": 0, "miss": 0}
 
 
@@ -458,8 +450,8 @@ def _bvh_cache_path(positions, tri_records, leaf_size, quality, leaf8):
     than the .so's size+mtime makes cached tables portable across
     environments (the lib is rebuilt per machine; a committed cache would
     otherwise never hit).  ``UWPT_BVH_CACHE=0`` disables;
-    ``UWPT_BVH_CACHE_DIR`` relocates (default
-    ``~/.cache/unity_webgpu_pathtracer_tpu/bvh``).
+    ``UWPT_BVH_CACHE_DIR`` relocates (default ``<checkout>/.bvh_cache``,
+    listed in ``.gitignore``).
     """
     import hashlib
     import os
@@ -469,9 +461,10 @@ def _bvh_cache_path(positions, tri_records, leaf_size, quality, leaf8):
     # Every env var bvh_builder.cpp resolves at build time must be part of
     # the key; grep the C++ for getenv when adding knobs.
     c_node = os.environ.get("UWPT_COLLAPSE_CNODE", "")
+    from unity_webgpu_pathtracer_tpu.compile_cache import CHECKOUT_DIR
+
     cache_dir = os.environ.get("UWPT_BVH_CACHE_DIR") or os.path.join(
-        os.path.expanduser("~"), ".cache", "unity_webgpu_pathtracer_tpu",
-        "bvh")
+        CHECKOUT_DIR, ".bvh_cache")
     try:
         os.makedirs(cache_dir, exist_ok=True)
     except OSError:

@@ -1,12 +1,11 @@
 """Split-table variant of the fat-row format: hot internal rows, cold leaves.
 
-Measured cache cliff on v5e (docs/PERFORMANCE.md): random row gathers cost
-2.5 ns/row from a ≤4 MB table, 11 ns from ~20-35 MB, 51 ns from 87 MB.  The
-unified fat-row table for a 1M-tri scene is 87 MB, but ~70 % of arrivals
-touch *internal* rows which only need 32 of the 48 floats.  Splitting:
+Random row gathers get dearer as the table outgrows the caches.  The
+unified fat-row table for a 1M-tri scene is 87 MB, but most arrivals touch
+*internal* rows which only need 32 of the 48 floats.  Splitting:
 
 * ``inner (O, Ni, 32)``  — per octant: [child boxes SoA 24 | child codes 4 |
-  skip 1 | inst meta 3].  ~19 MB for 1M tris -> 4.6x faster arrivals.
+  skip 1 | inst meta 3].  ~19 MB for 1M tris.
 * ``leaf_geo (Nl, 48)``  — octant-independent (shared!) inline triangle
   rows; gathered only in the amortized leaf phase.
 * ``leaf_skip (O, Nl)``  — per-octant DFS continuation of each leaf (the

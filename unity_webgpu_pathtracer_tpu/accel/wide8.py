@@ -1,13 +1,13 @@
-"""8-wide quantized BVH ("wide8") — round-2 production traversal format.
+"""8-wide quantized BVH ("wide8") — the mid-tier traversal format.
 
-Replaces the fat-row 4-ary skip-pointer format (``accel.wide``) on both axes
-the round-2 measurement campaign identified (docs/PERFORMANCE.md):
+Improves on the fat-row 4-ary skip-pointer format (``accel.wide``) on two
+axes:
 
 * **Quantized rows** — child AABBs are stored as 8-bit offsets from a
   per-node anchor with power-of-two per-axis scales (the CWBVH idea,
   ``tiny_bvh.h:5909-5931``), and leaf triangles as float16 offsets from a
   per-leaf anchor.  A ~1M-tri scene drops from 87 MB (4-ary fat rows) to
-  ~35 MB — on the cache-resident side of the measured gather cliff.
+  ~35 MB.
 * **Stack traversal instead of skip chains** — the traversal
   (``ops.traverse_wide8``) keeps a small per-lane stack of
   ``(row, remaining-children bitmask)`` entries, so sibling subtrees whose

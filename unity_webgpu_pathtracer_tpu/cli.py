@@ -15,8 +15,6 @@ import argparse
 import sys
 import time
 
-import jax
-
 
 TONEMAPS = {"none": 0, "aces": 1, "filmic": 2, "reinhard": 3, "lottes": 4}
 
@@ -84,9 +82,9 @@ def cmd_render(args):
         overrides["has_textures"]
         and any(m.normal_texture >= 0 for m in scene.materials)
     ) or overrides.get("has_normal_maps", False)
-    # Production defaults: fused + wide16 + the Pallas arrival kernel at
-    # cadence 8 (the bench-optimal config under the sorted-prefix film);
-    # every other backend remains selectable for cross-checking.
+    # Production defaults: fused + wide16 at transition cadence 8 (the
+    # bench config); every other backend remains selectable for
+    # cross-checking.
     if args.integrator == "fused" and "transition_every" not in overrides:
         overrides["transition_every"] = 8
     config = RenderConfig(
@@ -94,10 +92,6 @@ def cmd_render(args):
         samples_per_pass=min(args.spp, args.spp_per_pass),
         max_bounces=args.bounces,
         integrator=args.integrator,
-        # Pallas arrivals are TPU-compiled; on CPU backends the interpret
-        # fallback is correct but slow, so default it off there.
-        use_pallas_arrival=(not args.no_pallas
-                            and jax.default_backend() == "tpu"),
         **overrides,
     )
     params = make_camera_params(width=width, height=height, **cam)
@@ -137,7 +131,6 @@ def cmd_view(args):
     config = RenderConfig(
         width=width, height=height, samples_per_pass=args.spp_per_pass,
         max_bounces=args.bounces, integrator="fused",
-        use_pallas_arrival=jax.default_backend() == "tpu",
         transition_every=overrides.pop("transition_every", 8),
         **overrides,
     )
@@ -178,7 +171,6 @@ def cmd_animate(args):
     config = RenderConfig(
         width=width, height=height, samples_per_pass=args.spp,
         max_bounces=args.bounces, integrator="fused",
-        use_pallas_arrival=jax.default_backend() == "tpu",
         transition_every=overrides.pop("transition_every", 8),
         **overrides,
     )
@@ -232,8 +224,6 @@ def main(argv=None):
                     choices=["megakernel", "wavefront", "fused"])
     pr.add_argument("--traversal", default="wide16",
                     choices=["bruteforce", "mbvh", "skip", "wide", "wide2", "wide8", "wide16"])
-    pr.add_argument("--no-pallas", action="store_true",
-                    help="disable the Pallas arrival kernel (wide16+fused)")
     pr.add_argument("--env", help="HDRI .hdr environment map")
     pr.add_argument("--tonemap", default="aces", choices=list(TONEMAPS))
     pr.add_argument("--exposure", type=float, default=1.0)

@@ -88,21 +88,20 @@ class RenderConfig:
     # Supported tiers: "wide16" is PRODUCTION, "wide8" the mid-tier
     # cross-check, "bruteforce" the oracle (megakernel integrator).  The
     # rest (skip/mbvh/wide/wide2) are FROZEN experiment backends — kept
-    # importable and correct for A/B archaeology (docs/PERFORMANCE.md
-    # records why each lost), not performance-maintained.
+    # importable and correct for A/B comparison, not performance-maintained.
     traversal: str = "mbvh"
 
     # Octant-specialized DFS orders for the wide format (1 or 8): 8 orders
-    # visit near-first (fewer arrivals) but 8x the node table, which falls
-    # out of cache — 1 is faster for small/medium scenes (measured on v5e).
+    # visit near-first (fewer arrivals) but 8x the node table.
     bvh_octants: int = 1
 
-    # Integrator: "megakernel" (lax.scan bounce loop, correctness reference)
-    # or "wavefront" (ray pool + regeneration; the TPU-native design).
+    # Integrator: "megakernel" (lax.scan bounce loop, correctness
+    # reference), "wavefront" (staged ray pool + regeneration) or "fused"
+    # (render/fused.py, the production path).
     integrator: str = "megakernel"
 
     # Wavefront pool size (rays resident per step); 0 = auto
-    # (min(width*height*spp, 96k) — the round-12 sweep optimum).
+    # (min(width*height*spp, 96k)).
     pool_size: int = 0
 
     # Fused integrator: arrivals per transition step (occupancy/cost knob —
@@ -110,124 +109,78 @@ class RenderConfig:
     # a traversal segment idle until the next transition).
     transition_every: int = 4
 
-    # Run wide16 arrivals through the Pallas kernel (ops.pallas_arrival):
-    # one kernel per arrival instead of ~20 XLA fusions of decode/slab/MT/
-    # stack plumbing. Covers instanced (TLAS) scenes via the kernel's
-    # instance-row extension.
-    use_pallas_arrival: bool = False
-
-    # Run the fused integrator's transition (shade/NEE/BSDF/bookkeeping)
-    # through ONE Pallas kernel (ops.pallas_transition) instead of ~30 XLA
-    # shading fusions whose (B, k) intermediates round-trip HBM.  Gathers
-    # (env row, attr row, material record) and the work-queue/record-film
-    # logic stay in XLA.  Applies only to the supported production shape
-    # (wide16 + HDRI env NEE + untextured + record film — see
-    # ops.pallas_transition docstring); other configs silently use the
-    # XLA transition.
-    use_pallas_transition: bool = False
-
     # Chunked lane film (fused integrator): the shared work queue hands
     # out chunks of consecutive samples of one pixel; radiance accumulates
     # in-lane, completed chunks park in one flush slot per lane, and an
     # outer loop scatters all slots every chunk-size super-iterations —
-    # amortizing the film scatter's 40 ns/update x B hardware floor
-    # (10.35 ms/transition at B=262k) by the chunk size.  False = legacy
-    # per-transition scatter-add film.
-    # DEFAULT OFF: measured SLOWER on the bench (26 vs 14.4 s/pass at
-    # te=10 despite the 8x rarer scatter — docs/PERFORMANCE.md round-3
-    # notes); films are bit-identical either way, so the flag stays.
+    # the film scatter runs chunk-size times less often.  False = legacy
+    # per-transition scatter-add film.  Off by default; films are
+    # bit-identical either way.
     use_lane_film: bool = False
 
-    # Sorted-prefix film (fused integrator): the film scatter-add prices
-    # ~40 ns per ISSUED slot regardless of OOB drops, so the legacy path
-    # pays B slots/transition for ~0.25*B actual deaths.  This mode
-    # rank-gates dying lanes to at most K = pool >> film_k_shift accepted
-    # records per transition, compacts them to a K-prefix with ONE
-    # lax.sort (~4 ns/row — 10x cheaper than scatter slots,
-    # experiments/round7_scatterprobe.py) and scatters only K slots.
+    # Sorted-prefix film (fused integrator): the legacy film issues one
+    # scatter slot per lane per transition, most of them out-of-bounds
+    # drops.  This mode rank-gates dying lanes to at most
+    # K = pool >> film_k_shift accepted records per transition, compacts
+    # them to a K-prefix with ONE lax.sort and scatters only K slots.
     # Rejected lanes keep their radiance in-lane (mode stays DEAD, no
     # regeneration) and retry next transition — backpressure instead of
     # record loss, so correctness is unconditional; a post-loop flush
     # catches stragglers.  Per-sample radiance is bit-identical to the
     # legacy film; only scatter-add association differs (<= 1 ulp).
-    # Default ON: 28.68 -> 25.31 s/pass (+13%) on the 1M-tri bench with
-    # the te re-sweep (experiments/round8_sorted_te.py; the parking
-    # occupancy cost 0.977 -> 0.943 is far outweighed by the 40 ns/slot
-    # scatter saving).
     use_sorted_film: bool = True
 
     # K = pool_size >> film_k_shift accepted film records per transition
     # (sorted and record films).  With the record film (the production
-    # default) shift 0 (K = B) wins: appends price by bandwidth, not
-    # slots, so zero backpressure costs nothing and the rank-gate cumsum
-    # statically disappears (hardware A/B: k0 19.98 s vs k1 20.56 s,
-    # experiments/round9_record_ab.py).  If you revert to the sorted
-    # SCATTER film, use shift 1 (K = B/2): its K-slot scatter prices per
-    # slot, shift 1 wins there, shift 2 throttles on synchronized death
-    # bursts (occupancy 0.751) and shift 3 collapses (0.397)
-    # (experiments/round8_sortfilm_ab.py).
+    # default) shift 0 (K = B) statically removes the rank-gate cumsum and
+    # never applies backpressure.  The sorted SCATTER film prices per
+    # slot, so a shift of 1 (K = B/2) suits it; larger shifts throttle on
+    # synchronized death bursts.
     film_k_shift: int = 0
 
     # Sorted/record films: sort (key, lane-index) and GATHER the K-prefix
     # radiance rows through the permutation instead of sorting the three
-    # radiance channels as sort payloads.  Wins iff lax.sort prices per
-    # operand-row more than a K-row gather costs
-    # (experiments/round8_sortprobe.py sort4 vs sort2+gth decides).
+    # radiance channels as sort payloads.
     film_sort_perm: bool = False
 
     # Record film (fused integrator): removes the film scatter from the
     # hot loop ENTIRELY.  Death records are rank-gated and sort-compacted
     # exactly like the sorted-prefix film, but the K-prefix is APPENDED to
     # a pass-lifetime (budget + pool) record buffer with one
-    # ``lax.dynamic_update_slice`` (a contiguous in-place DMA — the while
-    # carry aliases, no scatter slots at all) at a moving cursor; garbage
-    # tail rows are overwritten by the next append.  Each (pixel, sample)
-    # work item dies exactly once, so the pass produces exactly
+    # ``lax.dynamic_update_slice`` (a contiguous in-place write — the
+    # while carry aliases, no scatter slots at all) at a moving cursor;
+    # garbage tail rows are overwritten by the next append.  Each (pixel,
+    # sample) work item dies exactly once, so the pass produces exactly
     # npix*spp valid records; ONE end-of-pass global sort groups them by
     # pixel into a dense (npix, spp, 3) block that a plain reshape-sum
     # resolves — no scatter there either.  Takes precedence over
     # use_sorted_film.  Film association differs from the legacy scatter
     # by sum order only (resolve sums each pixel's spp records in sorted
-    # order); per-sample radiance is bit-identical.  Default ON: 25.29 ->
-    # 19.98 s/pass (+27%, occupancy 0.941 -> 0.974) over the sorted-prefix
-    # film on the 1M-tri hardware bench at te=8, film_k_shift=0
-    # (experiments/round9_record_ab.py).  Costs ~1.1 GB HBM for the
-    # record buffer at 1080p x 32 spp.
+    # order); per-sample radiance is bit-identical.  The record buffer
+    # holds 16 bytes per sample of the pass (key + rgb).
     use_record_film: bool = True
 
     # Gather-free first-arrival prestep for fresh ray segments (wide16):
     # the root level (and, for non-instanced scenes, the second level) is
     # descended from broadcast constants / a slot select chain instead of
-    # HBM row gathers (ops.traverse_wide16.prestep16).
+    # row gathers (ops.traverse_wide16.prestep16).
     use_prestep: bool = True
 
     # Transition attribute fetch layout: False = gather the packed
     # (ceil(T/3), 48) attr_shade row and select this tri's 16 floats;
     # True = reshape the same table to (3*ceil(T/3), 16) and gather the
-    # triangle's row directly (no select, 1/3 the gathered bytes).  The
-    # round-10 trace prices the packed gather at 3.0 ms/super-iteration
-    # (11.5 ns/row, random indices) — the single biggest kernel.
-    # Hardware A/B (experiments/round10_attr_ab.py): alone it LOSES 6%
-    # (21.22 vs 19.94 s/pass — the narrow gather de-optimizes), but ON
-    # TOP of pallas_transpose_in_kernel it wins (16.14 -> 15.92 s);
-    # production runs both.  Films bit-identical either way.
+    # triangle's row directly (no select, 1/3 the gathered bytes).  Films
+    # bit-identical either way.
     attr_direct: bool = True
 
     # Compact transition attribute rows: gather the 32-byte f16 table
     # (scene.attr_shade_c) instead of the 64-byte f32 rows and decode
-    # in-register.  At 1M-tri scale the random attr gather prices by
-    # TABLE FOOTPRINT (64 MB -> ~24 ns/row, 32 MB -> ~16-18 ns/row;
-    # experiments/round11_attrsort.py), so halving the row is worth ~25%
-    # of attr-gather time.  Precision: f16 normals (~1e-3 on unit
-    # vectors) and uvs (~5e-4, <=1 texel at 2k).  Modes: 0/False = off,
-    # 1/True = one tri per 32-byte row, 2 = two tris per 64-byte row
-    # (same footprint, known-good gathered row width, one extra select).
-    # Hardware A/B (experiments/round11_attrcompact_ab.py): mode 1 LOSES
-    # 7% (15.89 -> 16.79 s/pass) — the narrow row prices worse per row
-    # than the footprint saves — but mode 2 WINS 9% (15.89 -> 14.55,
-    # 11.10 -> 12.13 Mrays/s): known-good row width at half footprint.
-    # Default mode 2; per-pixel film delta vs f32 attrs is ~2e-5 rel on
-    # small scenes, within MC noise at production spp.
+    # in-register, halving the table footprint.  Precision: f16 normals
+    # (~1e-3 on unit vectors) and uvs (~5e-4, <=1 texel at 2k).  Modes:
+    # 0/False = off, 1/True = one tri per 32-byte row, 2 = two tris per
+    # 64-byte row (same footprint, one extra select).  Per-pixel film
+    # delta vs f32 attrs is ~2e-5 rel on small scenes, within MC noise at
+    # production spp.
     # Mode 3 = 16-byte rows (3 octahedral-u32 vertex normals + material,
     # FOUR tris per gathered 64-byte row, scene._pack_attr_shade_o):
     # quarter the mode-2 footprint, but stores NO uv — statically
@@ -235,41 +188,21 @@ class RenderConfig:
     # integrator raises otherwise).
     attr_compact: int = 2
 
-    # Pallas arrival: take the gathered node rows as (B, 96) and
-    # transpose inside the Mosaic kernel instead of paying XLA's
-    # gather+layout-copy (the copy is 0.35 ms/arrival in the round-10
-    # trace).  Round 6 measured this SLOWER (11.7 vs 8.0 s/pass) when the
-    # kernel was 2x its current cost; after the canonical-f16 decode cut
-    # the balance inverted: hardware A/B round 10 measured 19.94 -> 16.14
-    # s/pass (+24%, experiments/round10_attr_ab.py).  Films bit-exact.
-    pallas_transpose_in_kernel: bool = True
-
     # Iterate the te arrivals with ONE lax.fori_loop instead of a Python
     # unroll: the traversal section of the while-body HLO shrinks ~te-x
-    # (compile-wall lever, VERDICT r3 item 5); the runtime kernel sequence
-    # is identical.  Measured on the 1M-tri bench before shipping a
-    # default — XLA layout assignment is structure-sensitive here
-    # (docs/PERFORMANCE.md round-6 "flat body" finding).
+    # (a compile-time lever); the per-lane arithmetic is identical.
     arrival_fori: bool = False
 
     # Thread the (M, 16) paired attr table through the while-loop carry
-    # instead of closing over the jit parameter.  The round-13/15 traces
-    # show XLA re-staging the 35 MB table into the gather-friendly
-    # {0,1:T(8,128)} layout EVERY super-iteration (copy.126, 0.37 ms/super
-    # = 8% of the pass) because the closed-over param's ABI layout is
-    # fixed; an explicit carry lets the layout conversion happen once at
-    # loop entry.  Measured +7.4% on the 1M-tri bench (24.07 -> 22.41
-    # s/pass at 64 spp, films bit-identical;
-    # experiments/round13_attrcarry_ab.py) — shipped as default.
-    # ONLY applies with ``attr_compact == 2`` (the paired-row layout);
-    # under other attr layouts the flag is silently a no-op.
+    # instead of closing over the jit parameter, so XLA may choose the
+    # table's gather layout once at loop entry.  ONLY applies with
+    # ``attr_compact`` 2 or 3 (the paired/quad-row layouts); under other
+    # attr layouts the flag is silently a no-op.
     attr_carry: bool = True
 
     # Same carry-threading for the wide16 node table and the merged env
-    # rows (round-16 trace: with only attr carried, XLA compiles 2 of the
-    # 8 node gathers in a degenerate +20% mode and re-stages the env rows
-    # per super-iteration, copy.117).  node_carry applies to wide16 only;
-    # env_carry to merged-row env maps only (no-ops otherwise).
+    # rows.  node_carry applies to wide16 only; env_carry to merged-row
+    # env maps only (no-ops otherwise).
     node_carry: bool = False
     env_carry: bool = False
 
@@ -279,62 +212,21 @@ class RenderConfig:
     # and (for the env rows) lanes that did not just finish a primary
     # segment.  The gather still issues for all B lanes (static shapes),
     # but the stale lanes' issues hit one cache-hot row instead of a cold
-    # random one — the round-18 anatomy prices the attr pair gather at
-    # 4.5 ns/lane vs the 1.5 ns coherent floor, so index entropy is the
-    # cost.  Films are bit-identical by construction: every consumer of
-    # the gathered rows is already masked by shade/env_done/light_done
-    # (tests/test_pallas_transition.py::test_mask_stale_gathers_film_identical,
+    # random one.  Films are bit-identical by construction: every consumer
+    # of the gathered rows is already masked by shade/env_done/light_done
+    # (tests/test_features.py::test_mask_stale_gathers_film_identical,
     # tests/test_features.py::test_mask_stale_gathers_identical_with_lights).
-    # Hardware A/B (round 19, te8 ptrans pool 96k spp 32): 15.58 -> 15.81
-    # Mrays/s (+1.4%), film bit-identical — shipped default ON.
     mask_stale_gathers: bool = True
 
-    # Feed the Pallas transition kernel 3-D (n, 8, 128) operands instead
-    # of 2-D (8, B/8): a (B,) array stored T(1024) is physically a
-    # sequence of (8, 128) vregs, so the 3-D reshape is a FREE bitcast
-    # (0 copies — experiments/round20_tile3d_probe.py) while the 2-D
-    # reshape is a strided relayout (~60-75 us/super of reshape kernels
-    # in the round-20 trace).  In-kernel rate is identical (9.21 vs 9.14
-    # ns/lane-chain, full vregs both ways); films are bit-identical (the
-    # kernel is per-lane elementwise and inputs/outputs share the lane
-    # map — tests/test_pallas_transition.py::test_tile3d_film_identical).
-    ptrans_tile3d: bool = False
-
     # Extract the merged-env-row fields from the TRANSPOSED gather result
-    # (contiguous (B,) sublane slices) instead of strided [B, j] columns,
-    # which XLA lowers to 16-iteration slice loops — the round-2
-    # column-extract pathology, re-found by the round-20 trace: the
-    # alias-index extract alone runs 70 us/super and forces a 40 us
-    # duplicated row-major layout copy of the gather result.  Per-element
-    # values and op order are identical -> films bit-identical
-    # (tests/test_pallas_transition.py::test_env_split_rows_film_identical).
+    # (contiguous (B,) slices) instead of strided [B, j] columns.
+    # Per-element values and op order are identical -> films bit-identical
+    # (tests/test_features.py::test_env_split_rows_film_identical).
     env_split_rows: bool = False
 
-    # Materialize the transition's attr pair gather in its natural
-    # row-major layout (optimization_barrier right after the gather)
-    # instead of letting XLA fuse the Pallas-kernel-feed transpose INTO
-    # the gather: the round-19 HLO map shows fusion.282 emitting
-    # u32[B,16]{0,1} (transposed) at 4.5 ns/lane while the same-shaped
-    # env gather emits {1,0} at the 1.5 ns floor plus a cheap 38 us
-    # layout copy.  Identity op — films bit-identical.
-    # Measured round 19: LOSES 4.5% — the transposing gather is the cheap
-    # fused form (kept as a documented-dead probe flag).
-    attr_row_barrier: bool = False
-
-    # Feed the Pallas transition kernel the RAW gathered attr pair rows
-    # (u32 planes) and decode the f16 vertex normals in-kernel
-    # (ops/pallas_transition._f16_decode, bit-exact vs XLA's
-    # bitcast+convert), instead of XLA's halfword-split/stack/bitcast/
-    # convert staging (~0.15 ms/super of copies in the round-19 HLO map:
-    # fusion.287 + copy-done.1 + copy.154).  The same move as the arrival
-    # kernel's transpose_in_kernel (+24% there).  Pallas transition +
-    # attr_compact == 2 only; no-op otherwise.
-    attr_in_kernel: bool = False
-
     # Prestep depth: 2 = root + child-slot select chain; 3 adds a THIRD
-    # gather-free level via a bit-exact 3-limb bf16 one-hot MXU matmul over
-    # the 256 grandchild slots (accel.wide16.derive_top3_limbs) — the
-    # 256-step select chain alternative costs ~2 ms and cancels the win.
+    # gather-free level via a bit-exact 3-limb bf16 one-hot matmul over
+    # the 256 grandchild slots (accel.wide16.derive_top3_limbs).
     prestep_levels: int = 2
 
     dtype: Any = jnp.float32

@@ -2,7 +2,7 @@
 
 ``million_triangle_scene``: a grid of smooth spheres over a ground plane
 (~1M coherent triangles) under a procedural HDRI — the north-star workload
-("1M-tri scene, 1080p, ≥200 Mrays/sec/chip").
+(1M-tri scene, 1080p; BASELINE.md).
 """
 
 from __future__ import annotations
@@ -94,8 +94,8 @@ def beam_scene(target_tris: int = 400_000, extent: float = 5.0,
     object splits produce massively overlapping nodes (every ray visits
     most of the tree); spatial splits (``UWPT_BVH_QUALITY=1``,
     tinybvh-``BuildHQ``-family) clip the references and restore locality.
-    This is the workload class where tree quality — a capability the
-    sphere-grid bench measured as NULL — actually pays.
+    This is the workload class where tree quality pays, unlike the
+    coherent sphere-grid bench.
     """
     from unity_webgpu_pathtracer_tpu.scene.mesh import Mesh
 

@@ -1,6 +1,6 @@
-"""Compute-path ops: intersection and BVH traversal backends, including
-the Pallas TPU arrival kernel (``ops.pallas_arrival``) the fused
-integrator uses for 16-wide traversal on no-instance scenes.
+"""Compute-path ops: intersection and BVH traversal backends.  The fused
+integrator steps 16-wide traversal one arrival at a time through
+``ops.traverse_wide16.arrival_step16``.
 
 ``get_intersectors(config)`` dispatches on ``RenderConfig.traversal`` and
 returns ``(closest_hit_fn, any_hit_fn)`` with the uniform signatures::

@@ -2,9 +2,9 @@
 
 The triangle test mirrors ``util/bvh.hlsl:23-59`` (precomputed ``[e2,e1,v0]``
 records, determinant epsilon 1e-7, min distance 1e-4) but evaluates a whole
-``(B, M)`` ray x triangle block at once — on TPU this is a dense VPU
-workload, ideal for small scenes and the ground truth the BVH paths are
-tested against (SURVEY.md §4).
+``(B, M)`` ray x triangle block at once — a dense vector workload, fine
+for small scenes and the ground truth the BVH paths are tested against
+(SURVEY.md §4).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Batched 8-wide MBVH traversal as a ``lax.while_loop`` over a ray batch.
 
-The TPU re-architecture of the reference's per-thread CWBVH stack traversal
+The batched re-architecture of the reference's per-thread CWBVH stack traversal
 (``util/bvh.hlsl:126-215``): every ray in the batch carries a short stack of
 child codes; one loop iteration pops an entry per ray and — fully masked, no
 divergence — either slab-tests the 8 children of an inner node (one (B, 48)
@@ -121,8 +121,8 @@ def _step(scene, origins, directions, inv_dir, s: _TravState, any_hit: bool):
         & (tt > T_MIN) & (tt < s.t[:, None])
     )
     tt = jnp.where(valid, tt, FAR_PLANE)
-    # Select-chain reduction (per-row dynamic indexing lowers to slow
-    # gathers on TPU — see docs/PERFORMANCE.md).
+    # Select-chain reduction instead of per-row dynamic indexing (which
+    # would lower to one more gather).
     t_new, u_new, v_new, slot_new = s.t, s.u, s.v, s.slot
     for kk in range(MAX_LEAF):
         better_k = tt[:, kk] < t_new

@@ -1,8 +1,8 @@
-"""Stackless skip-pointer BVH traversal — the TPU hot path.
+"""Stackless skip-pointer BVH traversal — a frozen backend.
 
-Replaces the stack-based MBVH traversal whose per-iteration argsort +
-arbitrary-index scatter dominate on TPU (see ops/traverse_mbvh.py, kept as
-the reference backend).  Here each ray carries only an int32 DFS pointer:
+Avoids the stack-based MBVH traversal's per-iteration argsort +
+arbitrary-index scatter (see ops/traverse_mbvh.py, kept as the reference
+backend).  Here each ray carries only an int32 DFS pointer:
 
     row  = nodes[octant, ptr]          # one contiguous 32 B gather
     hit  = slab(row, ray, t_best)
@@ -11,7 +11,7 @@ the reference backend).  Here each ray carries only an int32 DFS pointer:
 
 Front-to-back order comes from 8 octant-specialized linearizations
 (accel.linearize); ``t_best`` still culls, so the skip variant visits more
-nodes than a perfectly ordered stack but each step is ~100x cheaper on TPU.
+nodes than a perfectly ordered stack but each step is far cheaper.
 
 The leaf phase is decoupled: rays that reach a leaf "park" (pending leaf
 register) while others keep stepping; every LEAF_EVERY node steps one
@@ -107,8 +107,8 @@ def _leaf_step(scene, o, d, s: _SkipState):
         & (tt > T_MIN) & (tt < s.t[:, None])
     )
     tt = jnp.where(valid, tt, FAR_PLANE)
-    # Select-chain reduction (per-row dynamic indexing lowers to slow
-    # gathers on TPU — see docs/PERFORMANCE.md).
+    # Select-chain reduction instead of per-row dynamic indexing (which
+    # would lower to one more gather).
     t_new, u_new, v_new, slot_new = s.t, s.u, s.v, s.slot
     for k in range(MAX_LEAF):
         better_k = tt[:, k] < t_new

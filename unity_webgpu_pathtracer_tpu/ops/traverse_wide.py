@@ -145,7 +145,7 @@ def arrival_step(nodes_flat, n_nodes, base, o, d, inv, s: WideState,
     )
     tt = jnp.where(valid, tt, FAR_PLANE)
     # Lane-wise best-hit reduction via selects: per-row dynamic indexing
-    # (tt[rows, argmin]) would each lower to another ~3 ms gather op on TPU.
+    # (tt[rows, argmin]) would each lower to another gather op.
     attrs = jax.lax.bitcast_convert_type(row[:, 36:40], jnp.int32)
     t_new, u_new, v_new, tri_new = s.t, s.u, s.v, s.tri
     for k in range(4):

@@ -3,15 +3,14 @@
 Identical machinery to :mod:`ops.traverse_wide8` — one row gather per
 arrival, per-lane register stacks with revisit masks, direct-pointer pops,
 TLAS instance rows with the unnormalized-direction trick
-(``tlas.hlsl:131-135``) — with two round-3 upgrades:
+(``tlas.hlsl:131-135``) — with two upgrades:
 
-* **16 children / 16 leaf triangles per row** (384-byte rows): the gather
-  unit prices 384-byte rows the same ~17 ns/row as 192-byte rows
-  (experiments/round3_gather.py), so each arrival advances a ray twice as
-  far for the same cost; arrivals per ray drop accordingly.
+* **16 children / 16 leaf triangles per row** (384-byte rows): each
+  arrival advances a ray twice as far as a 192-byte wide8 row, so
+  arrivals per ray drop accordingly.
 * **True nearest-first descent**: the next child is the hit child with the
-  smallest slab entry t (argmin over the 16 lanes — VPU-free), replacing
-  wide8's octant-slot approximation.  Reference analogue: CWBVH's ordered
+  smallest slab entry t (argmin over the 16 lanes), replacing wide8's
+  octant-slot approximation.  Reference analogue: CWBVH's ordered
   nodeGroup extraction, ``util/bvh.hlsl:141-197``.
 
 Stack entries are (row, remaining-children mask) pairs held in TWO
@@ -127,11 +126,10 @@ def arrival_step16(nodes, o, d, inv, s: Wide16State, active=None,
         ],
         axis=-1,
     )                                                            # (B, 3)
-    # Whole-slice bitcast + reshape (per-column extracts lower to strided
-    # slice-loops, ~1.5 ms each at B=262k — same rule as wide8), then a
-    # STATIC column permutation from the SPLIT byte order back to slot
-    # order (accel.wide16.PERM_Q; this jnp path is the CPU/test tier —
-    # the Pallas kernel consumes the SPLIT order natively).
+    # Whole-slice bitcast + reshape (per-column extracts can lower to
+    # strided slice-loops — same rule as wide8), then a STATIC column
+    # permutation from the SPLIT byte order back to slot order
+    # (accel.wide16.PERM_Q).
     qbytes = jax.lax.bitcast_convert_type(
         row[:, 8:32], jnp.uint8).reshape(b, 96).astype(jnp.float32)
     perm_q = jnp.asarray(PERM_Q, jnp.int32)
@@ -325,10 +323,10 @@ def prestep16(nodes, top, o, d, inv, s: Wide16State, mask,
     HBM: level 1 slab-tests the root's children from the broadcast root row
     (``nodes[0]``); level 2 reassembles the chosen child's decoded fields
     from the slot-indexed host table ``top`` (``accel.wide16.derive_top16``)
-    with a 16-step select chain (bitwise-exact, fully fusable — a one-hot
-    MXU matmul is NOT bit-exact in f32 and a 16-row gather still pays the
-    per-row gather price).  Profiled arrivals cost ~3 ms of HBM gather each
-    at B=262k; these two cost VPU time only.
+    with a 16-step select chain (bitwise-exact, fully fusable — a plain f32
+    one-hot matmul is not guaranteed bit-exact and a 16-row gather still
+    pays the per-row gather price).  These levels cost arithmetic only, no
+    row gathers.
 
     ``mask`` must select only fresh lanes (ptr==0, pend==FULL, sp==0,
     world space).  Lanes whose root is not an inner node are left alone.
@@ -343,11 +341,10 @@ def prestep16(nodes, top, o, d, inv, s: Wide16State, mask,
 
     # ---- level 1: the root row, broadcast ----
     # The row's integer-bearing words (meta, exponents, ptrs) are arbitrary
-    # bit patterns that are DENORMAL as f32 (ptr values < 2^23); the TPU
-    # flushes denormals to zero somewhere in the scalar/small-vector f32
-    # lowering (observed: eword/ptrs read back 0 on TPU, correct on CPU),
-    # so the whole row is bitcast to int32 FIRST and every field is
-    # extracted in integer space.  Anchor floats are normal values and safe.
+    # bit patterns that are DENORMAL as f32 (ptr values < 2^23); a backend
+    # that flushes denormals in some f32 lowering would zero them, so the
+    # whole row is bitcast to int32 FIRST and every field is extracted in
+    # integer space.  Anchor floats are normal values and safe.
     row0 = nodes[0]
     row0_i = jax.lax.bitcast_convert_type(row0, jnp.int32)       # (96,)
     mask = mask & (row0_i[3] == 0)
@@ -427,13 +424,13 @@ def prestep16(nodes, top, o, d, inv, s: Wide16State, mask,
         # arrival repeats the test and pops correctly (rare; conservative).
         ptr = jnp.where(l2 & found2, gchild, ptr)
 
-        # ---- level 3: grandchild fields via a bit-exact one-hot MXU
+        # ---- level 3: grandchild fields via a bit-exact one-hot
         # matmul over the 256 (slot1, slot2) combinations ----
-        # A 256-step select chain costs ~2 ms (cancels the win); instead
-        # the host pre-splits the decoded slot table into 3 bf16 limbs
-        # (exact: 8+8+8 mantissa bits cover f32's 24) and the one-hot
-        # matmul gathers each limb on the MXU — one nonzero per row, so
-        # every product and the f32 accumulation are exact.
+        # Instead of a 256-step select chain, the host pre-splits the
+        # decoded slot table into 3 bf16 limbs (exact: 8+8+8 mantissa bits
+        # cover f32's 24) and a bf16 one-hot matmul gathers each limb —
+        # one nonzero per row, so every product and the f32 accumulation
+        # are exact.
         if top3 is not None and top3.shape[-2] == 256:
             slot12 = slot1 * 16 + slot2                  # (B,)
             onehot = (slot12[:, None] == jnp.arange(256, dtype=jnp.int32)[None, :])

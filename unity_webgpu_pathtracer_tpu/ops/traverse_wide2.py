@@ -4,8 +4,8 @@ Same algorithm as ops/traverse_wide but over the split tables: internal
 steps gather 128-byte rows from the small hot ``inner`` table; lanes that
 reach a leaf *park* and an amortized leaf phase gathers the cold 192-byte
 ``leaf_geo`` rows + the tiny per-octant ``leaf_skip`` continuation.  On the
-1M-tri benchmark this moves ~70 % of gathers from a 87 MB table (51 ns/row
-on v5e) to a ~19 MB one (~11 ns/row) — see docs/PERFORMANCE.md.
+1M-tri benchmark this moves most gathers from an 87 MB table to a ~19 MB
+one.
 
 Position codes are signed: ``pos > 0`` inner row ``pos-1``, ``pos < 0``
 parked leaf ``-pos-1``, ``0`` end.  TLAS instance rows live in the inner

@@ -5,8 +5,7 @@ stack of ``(row << 8) | remaining-children-bitmask`` entries replaces the
 DFS skip chain, so subtrees whose quantized boxes missed are never gathered
 at all (the reference's CWBVH traversal keeps the same nodeGroup bitmask in
 registers, ``util/bvh.hlsl:141-197``; here the "registers" are (B, D)
-arrays and push/pop are one-hot selects — no per-lane dynamic scatters,
-which the round-1 campaign measured at ~9 ms/step).
+arrays and push/pop are one-hot selects — no per-lane dynamic scatters).
 
 Children are visited in ``k ^ ray_octant`` slot order (the builder assigns
 slots by centroid octant), giving near-first ordering for every ray
@@ -158,8 +157,8 @@ def arrival_step8(nodes, o, d, inv, s: Wide8State, active=None,
         axis=-1,
     )                                                            # (B, 3)
     # Whole-slice bitcast + reshape: per-column extracts of the (B, 48)
-    # gather result lower to strided slice-loops that cost ~1.5 ms each at
-    # B=262k (profiled); one bitcast of the contiguous slice is ~free.
+    # gather result can lower to strided slice-loops; one bitcast of the
+    # contiguous slice is cheap.
     qbytes = jax.lax.bitcast_convert_type(
         row[:, 8:20], jnp.uint8).reshape(b, 48).astype(jnp.float32)
     t_near = jnp.zeros((b, 8), jnp.float32)

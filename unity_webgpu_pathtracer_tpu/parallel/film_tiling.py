@@ -1,14 +1,15 @@
 """Multi-chip rendering over a ``jax.sharding.Mesh``.
 
-The reference is single-GPU (SURVEY.md §2.4); this is the scaling layer the
-TPU rebuild adds.  Two orthogonal axes:
+The reference is single-GPU (SURVEY.md §2.4); this is the scaling layer
+this rebuild adds.  Two orthogonal axes:
 
-* ``tile``  — the film plane is row-sharded; each chip traces only its own
-  pixels.  Scene arrays (BVH, triangles, materials, env CDF) are replicated
-  into every chip's HBM.  No communication until film assembly.
-* ``spp``   — samples are sharded; each chip renders the *whole* film with a
-  disjoint sample-index range and the pass results are summed with a
-  ``psum`` riding ICI.
+* ``tile``  — the film plane is row-sharded; each device traces only its
+  own pixels.  Scene arrays (BVH, triangles, materials, env CDF) are
+  replicated into every device's memory.  No communication until film
+  assembly.
+* ``spp``   — samples are sharded; each device renders the *whole* film
+  with a disjoint sample-index range and the pass results are summed with
+  a ``psum`` (NCCL between GPUs).
 
 Both are expressed with ``shard_map`` so XLA sees single-chip programs plus
 explicit collectives, following the mesh-first recipe (pick a mesh, shard,
@@ -61,7 +62,7 @@ def multichip_render_pass(scene, config: RenderConfig, params: RenderParams,
         sample0 = current_sample_rep + s * config.samples_per_pass
         tile_sum = render_pass(scene_rep, config, params_rep, sample0,
                                pixel_indices=pixels)
-        # Sum the spp axis (ICI psum), then assemble tiles (all_gather).
+        # Sum the spp axis (psum), then assemble tiles (all_gather).
         tile_sum = jax.lax.psum(tile_sum, axis_name="spp")
         return jax.lax.all_gather(tile_sum, axis_name="tile", axis=0).reshape(npix, 3)
 

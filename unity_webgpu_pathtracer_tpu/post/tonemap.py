@@ -18,7 +18,7 @@ from unity_webgpu_pathtracer_tpu.config import (
     TONEMAP_REINHARD,
     PostParams,
 )
-from unity_webgpu_pathtracer_tpu.utils.math import luminance
+from unity_webgpu_pathtracer_tpu.utils.math import luminance, matmul_f32
 
 _ACES_IN = np.array(
     [[0.59719, 0.35458, 0.04823],
@@ -47,10 +47,10 @@ def srgb_to_linear(rgb: jnp.ndarray) -> jnp.ndarray:
 
 def aces(color: jnp.ndarray) -> jnp.ndarray:
     """ACES RRT+ODT fit (``tonemap.hlsl:21-45``)."""
-    c = color @ jnp.asarray(_ACES_IN).T
+    c = matmul_f32(color, jnp.asarray(_ACES_IN).T)
     a = c * (c + 0.0245786) - 0.000090537
     b = c * (0.983729 * c + 0.4329510) + 0.238081
-    return (a / b) @ jnp.asarray(_ACES_OUT).T
+    return matmul_f32(a / b, jnp.asarray(_ACES_OUT).T)
 
 
 def filmic(x: jnp.ndarray) -> jnp.ndarray:

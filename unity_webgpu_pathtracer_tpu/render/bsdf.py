@@ -4,8 +4,8 @@ reflection, metallic GGX reflection, glass reflect/refract, clearcoat GTR1).
 Vectorized, branch-free port of ``Assets/Resources/util/brdf.hlsl``: the
 reference evaluates lobes under scalar ``if (pr > 0 && reflect)`` guards
 (:160-220); here every lobe is evaluated for the whole ray batch and gated
-with ``jnp.where`` — the TPU executes all lanes anyway, so the guards become
-masks and every division is made safe so masked lanes cannot generate NaNs
+with ``jnp.where`` — a batched program executes all lanes anyway, so the
+guards become masks and every division is made safe so masked lanes cannot generate NaNs
 that would poison live lanes.
 
 Conventions match the reference: all lobe math happens in the tangent frame
@@ -351,7 +351,7 @@ def sample_brdf(mat: Material, v_world, n, state):
     cdf3 = cdf2 + glass_pr
 
     # Candidate directions for every lobe (computed for all lanes; selected
-    # by the CDF masks — the TPU analogue of the scalar if/else chain).
+    # by the CDF masks — the batched analogue of the scalar if/else chain).
     l_diff = cosine_sample_hemisphere(r1, r2)
 
     h_ggx = sample_ggx_vndf(v, mat.ax, mat.ay, r1, r2)

@@ -14,7 +14,11 @@ import numpy as np
 
 from unity_webgpu_pathtracer_tpu.config import RenderConfig, RenderParams
 from unity_webgpu_pathtracer_tpu.utils import rng as urng
-from unity_webgpu_pathtracer_tpu.utils.math import concentric_sample_disk, normalize
+from unity_webgpu_pathtracer_tpu.utils.math import (
+    concentric_sample_disk,
+    matmul_f32,
+    normalize,
+)
 
 # AA jitter stddev in pixels: 1/sqrt(8 ln 2) so the Gaussian reaches half
 # maximum at orthogonally adjacent pixel midpoints (PathTracer.compute:25-31).
@@ -83,7 +87,7 @@ def get_screen_ray(pixel_coords: jnp.ndarray, config: RenderConfig,
     dir_cam = (
         uv[..., 0:1] * ip[:3, 0] + uv[..., 1:2] * ip[:3, 1] + ip[:3, 3]
     )
-    direction = normalize(dir_cam @ c2w[:3, :3].T)
+    direction = normalize(matmul_f32(dir_cam, c2w[:3, :3].T))
 
     if config.use_depth_of_field:
         (u1, u2), state = urng.random_floats(state, 2)

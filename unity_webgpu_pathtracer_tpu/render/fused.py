@@ -1,10 +1,11 @@
-"""Fused traversal+shade wavefront — the production TPU integrator.
+"""Fused traversal+shade wavefront — the production integrator.
 
 The barrier-free endgame of the wavefront design (see render/wavefront.py
 for the staged variant and SURVEY.md §2.4/§5): ONE ``lax.while_loop`` whose
 iteration interleaves
 
-* ``TRANSITION_EVERY`` × :func:`ops.traverse_wide.arrival_step` — every lane
+* ``TRANSITION_EVERY`` × one traversal arrival
+  (:func:`ops.traverse_wide16.arrival_step16` in production) — every lane
   advances its own traversal (primary closest-hit or NEE shadow any-hit) by
   one fat-row gather; finished lanes idle at most a few steps;
 * one *transition* step — lanes whose traversal just finished move through
@@ -16,21 +17,18 @@ iteration interleaves
 
 There is no synchronization point anywhere between path starts: mean path
 cost, not worst-case, governs throughput — the property the per-bounce
-barrier integrators fundamentally lack on TPU.
+barrier integrators lack.
 
-Film accumulation: the legacy path (default) scatter-adds died lanes'
-radiance every transition, with DISTINCT out-of-bounds indices for
-surviving lanes (a shared OOB sentinel is a mass duplicate the TPU
-scatter serializes before dropping — measured 0.47 GB/s).  The optional
-chunked lane film (``config.use_lane_film``) hands out chunks of ``ch``
-consecutive samples of one pixel, accumulates in-lane and flushes one
-slot per lane per iteration (fewer real scatter indices; measured
-occupancy cost ~0.84 vs 0.96 from the coarser queue).  Amortizing the
-flush across iterations via a nested while or lax.cond DE-OPTIMIZES the
-fused gather+transpose layout (44.4 vs 12.0 ms/super-iteration of
-gather) — only flat loop bodies stay fast on this platform.  Per-sample
-radiance is bit-identical between both film modes (same (pixel, sample)
-seeds); only scatter-add association differs.
+Film accumulation: the record film (default) appends death records and
+resolves them with one sort at the end of the pass; the sorted-prefix
+and legacy films scatter-add died lanes' radiance every transition, with
+DISTINCT out-of-bounds indices for surviving lanes (a shared OOB sentinel
+is a mass duplicate a scatter may serialize before dropping).  The
+optional chunked lane film (``config.use_lane_film``) hands out chunks
+of ``ch`` consecutive samples of one pixel, accumulates in-lane and
+flushes one slot per lane per iteration (fewer real scatter indices, a
+coarser queue).  Per-sample radiance is bit-identical between all film
+modes (same (pixel, sample) seeds); only the summation order differs.
 
 State machine modes::
 
@@ -106,8 +104,7 @@ TRANSITION_EVERY = 4  # default; RenderConfig.transition_every overrides
 def _chunk_size(config: RenderConfig, spp_l: int) -> int:
     """Samples per work-queue chunk for the lane film: the largest divisor
     of the shard's samples-per-pass <= 8.  The film scatter amortizes by
-    this factor; larger chunks coarsen queue balancing, and 8 already cuts
-    the 10.35 ms scatter to ~1.3 ms amortized."""
+    this factor; larger chunks coarsen queue balancing."""
     for c in (8, 4, 2, 1):
         if spp_l % c == 0:
             return c
@@ -164,9 +161,8 @@ class FusedState(NamedTuple):
     # buffer (budget + pool rows) + append cursor.  Valid rows carry
     # (pixel, rgb); never-written / garbage-tail rows carry key >= npix
     # and sort to the back of the end-of-pass resolve.  The rgb channels
-    # are stored as three 1-D arrays: a (C, 3) buffer at C ~ 67M would be
-    # lane-padded 3 -> 128 by the TPU tiled layout (34 GB instead of
-    # 0.8 GB — measured OOM on hardware).
+    # are stored as three 1-D arrays, which are the sort's payload
+    # operands as they stand.
     rec_keys: jnp.ndarray = jnp.zeros(1, jnp.int32)    # (C,)
     rec_v0: jnp.ndarray = jnp.zeros(1)                 # (C,)
     rec_v1: jnp.ndarray = jnp.zeros(1)                 # (C,)
@@ -218,8 +214,7 @@ def _set_trav(s: FusedState, mask, o, d, t_max, entry=None):
 
 def _oct_decode(u):
     """16-bit-octahedral u32 -> unnormalized vec3 (scene._oct_encode_u32
-    inverse).  Shared by the XLA and Pallas-transition attr_compact=3
-    fetch paths (must stay bit-identical between them)."""
+    inverse), the attr_compact=3 normal fetch."""
     x = (u & jnp.uint32(0xFFFF)).astype(jnp.float32) \
         * jnp.float32(2.0 / 65535.0) - 1.0
     y = (u >> jnp.uint32(16)).astype(jnp.float32) \
@@ -404,24 +399,17 @@ def _transition(scene, config: RenderConfig, params: RenderParams,
     elif getattr(config, "attr_compact", False):
         # Compact 32-byte rows: 15 f16 halfwords + u16 material packed in
         # 8 u32 words (scene._pack_attr_shade_c).  Half the table
-        # footprint of the f32 rows, which is what random-gather pricing
-        # keys on at 1M-tri scale (experiments/round11_attrsort.py).
+        # footprint of the f32 rows.
         if scene.materials.shape[0] > 0x10000:
             raise ValueError("config.attr_compact requires <= 65536 "
                              "materials (the compact rows store a u16 "
                              "index; the scene build degraded the table "
                              "to a placeholder)")
         if int(config.attr_compact) == 2:
-            # Two triangles per 64-byte row: the gather rides the row
-            # width the unit already prices well while keeping the 32 MB
-            # footprint; one select picks this tri's 8 words.  The
-            # reshape here LOOKS like waste in xprof (a 0.37 ms/super
-            # table copy into memory space S(1)) but is load-bearing:
-            # storing the table pre-paired measured 32% slower end to
-            # end — XLA uses the copy to stage a gather-friendly layout.
-            # attr_pair (config.attr_carry): the same table threaded
-            # through the while carry so the layout staging happens once
-            # at loop entry instead of per super-iteration.
+            # Two triangles per 64-byte row, the same footprint as mode
+            # 1; one select picks this tri's 8 words.  attr_pair
+            # (config.attr_carry): the same table threaded through the
+            # while carry instead of closed over.
             table = (attr_pair if attr_pair is not None
                      else scene.attr_shade_c.reshape(-1, 16))
             pair = table[attr // 2]
@@ -693,12 +681,11 @@ def _transition(scene, config: RenderConfig, params: RenderParams,
         # ---- chunked lane accumulation + deferred flush ----
         # The shared work queue hands out CHUNKS of `ch` consecutive
         # samples of one pixel (dynamic balancing exactly like the sample
-        # queue — fixed lane->pixel ownership measured occupancy 0.55 vs
-        # 0.96).  Deaths accumulate radiance in-lane; a completed chunk
-        # writes ONE (pixel, rgb) flush-slot record, and the outer pass
-        # loop scatters all B slots every M <= ch super-iterations —
-        # cutting the film scatter's 40 ns/update x B hardware floor by
-        # ~ch x.  A lane can complete at most one chunk per M transitions
+        # queue; fixed lane->pixel ownership would leave lanes idle).
+        # Deaths accumulate radiance in-lane; a completed chunk writes ONE
+        # (pixel, rgb) flush-slot record, and the outer pass loop scatters
+        # all B slots every M <= ch super-iterations — ~ch x fewer scatter
+        # updates.  A lane can complete at most one chunk per M transitions
         # (each sample needs >= 1 transition), so one slot per lane
         # suffices.  Seeds stay (global pixel, global sample): per-sample
         # radiance is bit-identical to the legacy path; only scatter-add
@@ -741,8 +728,8 @@ def _transition(scene, config: RenderConfig, params: RenderParams,
         # ---- record film: append, don't scatter ----
         # Identical rank-gate + sort compaction to the sorted-prefix film
         # below, but the K-prefix is APPENDED to the pass-lifetime record
-        # buffer with one dynamic_update_slice (contiguous in-place DMA on
-        # the aliased while carry) instead of scattered.  The cursor
+        # buffer with one dynamic_update_slice (a contiguous in-place
+        # write on the aliased while carry) instead of scattered.  The cursor
         # advances by the ACCEPTED count only, so the garbage tail of this
         # block (keys >= npix) is overwritten by the next append; the
         # final block's tail sorts to the back of the end-of-pass resolve.
@@ -797,12 +784,11 @@ def _transition(scene, config: RenderConfig, params: RenderParams,
             jnp.where(rec_pending[:, None], rad_out, radiance))
     elif config.use_sorted_film:
         # ---- sorted-prefix film: K scatter slots instead of B ----
-        # The scatter prices ~40 ns per ISSUED slot (OOB drops included);
-        # deaths average ~0.25*B per transition, so the legacy B-slot
-        # scatter wastes ~4x.  Accept at most K = b >> film_k_shift
-        # records (rank-gated BEFORE the sort so nothing is ever lost),
-        # compact them to the front with one lax.sort (~4 ns/row) and
-        # scatter only that prefix.  Rejected lanes park their (clamped)
+        # The legacy film issues B scatter slots per transition (OOB drops
+        # included) for the fraction of lanes that actually died.  Accept
+        # at most K = b >> film_k_shift records (rank-gated BEFORE the
+        # sort so nothing is ever lost), compact them to the front with
+        # one lax.sort and scatter only that prefix.  Rejected lanes park their (clamped)
         # radiance in-lane, skip regeneration, and retry next transition;
         # the pass loop flushes stragglers after the while loop.
         pix_local = s.pixel - jnp.asarray(shard[0], jnp.int32)
@@ -856,13 +842,10 @@ def _transition(scene, config: RenderConfig, params: RenderParams,
         # ---- legacy shared work queue + scatter-add film ----
         # Film rows are shard-local; s.pixel is global. Lanes that did NOT
         # die are routed out-of-bounds and dropped by the scatter (JAX's
-        # default out-of-bounds drop semantics): routing them to pixel 0
-        # with a zero value instead serialized ~85% duplicate updates
-        # inside the scatter kernel — profiled at 10.5 ms of the 65 ms
-        # super-iteration (experiments/round4_profile.py).  Each dropped
-        # lane gets a DISTINCT OOB index (npix + lane): a single shared
-        # sentinel is itself a mass duplicate that the scatter serializes
-        # before dropping (measured 0.47 GB/s scatter bandwidth).
+        # default out-of-bounds drop semantics); routing them to pixel 0
+        # with a zero value instead would make most updates duplicates of
+        # one row.  Each dropped lane gets a DISTINCT OOB index (npix +
+        # lane): a single shared sentinel is itself a mass duplicate.
         pix_local = s.pixel - jnp.asarray(shard[0], jnp.int32)
         oob = s.film.shape[0] + jnp.arange(b, dtype=jnp.int32)
         film = s.film.at[jnp.where(died, pix_local, oob)].add(rad_out)
@@ -943,255 +926,6 @@ def _transition(scene, config: RenderConfig, params: RenderParams,
     )
 
 
-def _pallas_transition_supported(scene, config: RenderConfig) -> bool:
-    """Static gate for the Pallas transition kernel (ops.pallas_transition).
-
-    The kernel covers the production bench shape — wide16 traversal,
-    paired-f16 attr rows, HDRI env NEE with merged rows, no analytic
-    lights, no textures / normal maps / TLAS, record film.  Every check is
-    trace-time static (config fields and array shapes); unsupported
-    configs silently run the XLA transition."""
-    if not getattr(config, "use_pallas_transition", False):
-        return False
-    if config.traversal != "wide16":
-        return False
-    if int(getattr(config, "attr_compact", 0) or 0) not in (2, 3):
-        return False
-    if (config.sky_mode != SKY_MODE_ENVIRONMENT
-            or not config.has_environment_texture):
-        return False
-    h, w = scene.env.image.shape[0], scene.env.image.shape[1]
-    if scene.env.merged_rows.shape[0] != h * w:
-        return False
-    if config.has_lights and scene.lights.shape[0] > 0:
-        return False
-    if config.has_textures or config.has_normal_maps:
-        return False
-    if scene.inst_w2l.shape[0] > 0:
-        return False
-    if config.use_lane_film or not config.use_record_film:
-        return False
-    if scene.materials.shape[0] > 0x10000:
-        return False
-    return True
-
-
-def _transition_pallas(scene, config: RenderConfig, params: RenderParams,
-                       s: FusedState, budget: int, current_sample,
-                       trav_done, shard=None, attr_pair=None,
-                       interpret: bool = False):
-    """Fused-transition twin of :func:`_transition` for the supported
-    production shape (see :func:`_pallas_transition_supported`): the env
-    sample, attr-row fetch and material fetch (the gathers) plus the
-    record-film append and work-queue regeneration stay in XLA; the whole
-    per-lane shade/NEE/BSDF/bookkeeping stage runs as ONE Mosaic kernel.
-    State evolution is transcribed op-for-op from ``_transition`` —
-    per-lane results are bit-identical in interpret mode (CPU tests) and
-    FMA-ulp-close compiled."""
-    from unity_webgpu_pathtracer_tpu.ops import pallas_transition as _pt
-
-    b = s.mode.shape[0]
-    if shard is None:
-        shard = (jnp.uint32(0), config.pixel_count(), jnp.uint32(0))
-    pixel_base, npix_l, sample_base = shard
-
-    a = (s.mode == MODE_PRIMARY) & trav_done
-    hit_valid = s.trav.tri >= 0
-    want_alias = a & hit_valid
-    mask_stale = bool(getattr(config, "mask_stale_gathers", False))
-    (sky_raw, sky_pdf, env_dir, env_col, env_pdf,
-     rng_state) = sample_env_transition(
-        scene.env, params.environment_rotation, s.path_d, want_alias, s.rng,
-        need=a if mask_stale else None,
-        split=bool(getattr(config, "env_split_rows", False)))
-    intensity = jnp.where(s.depth > 0, params.environment_intensity, 1.0)
-    sky_color = sky_raw * intensity[:, None]
-    env_li = env_col * params.environment_intensity
-
-    # Attr fetch: identical to _transition's attr_compact == 2 / 3 paths.
-    sel_tri = jnp.where(a, s.trav.tri, s.hit_tri)
-    attr = jnp.maximum(sel_tri, 0)
-    if mask_stale:
-        shadow_done = trav_done | s.trav.found
-        need_mat = (a & hit_valid) | (
-            ((s.mode == MODE_SHADOW_ENV) | (s.mode == MODE_SHADOW_LIGHT))
-            & shadow_done)
-        attr = jnp.where(need_mat, attr, 0)
-    if int(config.attr_compact) == 3:
-        # 16-byte oct-normal rows, four tris per gathered 64-byte row
-        # (quarter the mode-2 footprint — random-gather pricing keys on
-        # table bytes).  Decode + per-vertex normalize happen here in
-        # XLA (fused into the kernel-feed transpose); the kernel sees
-        # the same unit-vertex-normal rows mode 2 stores, with the uv
-        # rows (unused in untextured configs) zero.
-        table_o = (attr_pair if attr_pair is not None
-                   else scene.attr_shade_o.reshape(-1, 16))
-        quad = table_o[attr // 4]                           # (B, 16) u32
-        sub = attr % 4
-        rowo = jnp.where(
-            (sub == 0)[:, None], quad[:, 0:4],
-            jnp.where((sub == 1)[:, None], quad[:, 4:8],
-                      jnp.where((sub == 2)[:, None], quad[:, 8:12],
-                                quad[:, 12:16])))           # (B, 4)
-        n012 = [normalize(_oct_decode(rowo[:, v])) for v in range(3)]
-        shade_row = jnp.concatenate(
-            n012 + [jnp.zeros((b, 6), jnp.float32)], axis=1)  # (B, 15)
-        mat_idx = rowo[:, 3].astype(jnp.int32)
-    else:
-        table = (attr_pair if attr_pair is not None
-                 else scene.attr_shade_c.reshape(-1, 16))
-        pair = table[attr // 2]
-        if getattr(config, "attr_row_barrier", False):
-            # Pin the gather to its natural row-major layout; the
-            # kernel-feed transpose becomes a separate (cheap) copy
-            # instead of a degenerate transposing gather (round-19 HLO
-            # map: {0,1}-emitting gather at 4.5 ns/lane vs the 1.5 ns
-            # floor).  Identity — films bit-identical.
-            # Measured round 19: LOSES 4.5% (probe flag, default off).
-            pair = jax.lax.optimization_barrier(pair)
-        if getattr(config, "attr_in_kernel", False):
-            # Raw rows into the kernel; the only XLA-side decode is the
-            # material index (hi16 of word 7 of this tri's half).
-            attr_raw = (pair.T, (attr % 2).astype(jnp.int32))
-            w7 = jnp.where(attr % 2 == 0, pair[:, 7], pair[:, 15])
-            mat_idx = (w7 >> jnp.uint32(16)).astype(jnp.int32)
-        else:
-            attr_raw = None
-            rowc = jnp.where((attr % 2 == 0)[:, None], pair[:, 0:8],
-                             pair[:, 8:16])
-            lo = (rowc & jnp.uint32(0xFFFF)).astype(jnp.uint16)
-            hi = (rowc >> jnp.uint32(16)).astype(jnp.uint16)
-            half = jnp.stack([lo, hi], axis=-1).reshape(b, 16)
-            shade_row = jax.lax.bitcast_convert_type(
-                half[:, 0:15], jnp.float16).astype(jnp.float32)
-            mat_idx = half[:, 15].astype(jnp.int32)
-    mdata = gather_small(scene.materials, jnp.maximum(mat_idx, 0))
-
-    if int(config.attr_compact) != 3 and getattr(config, "attr_in_kernel",
-                                                 False):
-        attr_kw = dict(pairT=attr_raw[0], parity=attr_raw[1])
-    else:
-        attr_kw = dict(shade_rowT=shade_row.T)
-
-    kout = _pt.transition_step16_pallas(
-        mode=s.mode, trav_done=trav_done,
-        ptr=s.trav.ptr, pend=s.trav.pend, sp=s.trav.sp,
-        t=s.trav.t, u=s.trav.u, v=s.trav.v, tri=s.trav.tri,
-        found=s.trav.found,
-        trav_oT=s.trav_o.T, trav_dT=s.trav_d.T,
-        path_oT=s.path_o.T, path_dT=s.path_d.T,
-        hit_t=s.hit_t, hit_baryT=s.hit_uv_bary.T, hit_tri=s.hit_tri,
-        pendingT=s.pending.T, throughputT=s.throughput.T,
-        radianceT=s.radiance.T,
-        rng=rng_state, depth=s.depth, max_rough=s.max_roughness,
-        prev_pdf=s.prev_pdf, lane_cap=s.lane_cap,
-        mdataT=mdata[:, 0:22].T, **attr_kw,
-        sky_colT=sky_color.T, sky_pdf=sky_pdf,
-        env_dirT=env_dir.T, env_liT=env_li.T, env_pdf=env_pdf,
-        use_rr=config.use_russian_roulette, max_bounces=config.max_bounces,
-        firefly=config.use_firefly_filter,
-        firefly_max=params.max_firefly_luminance,
-        nan_canary=config.debug_nan_canary, interpret=interpret,
-        tile3d=bool(getattr(config, "ptrans_tile3d", False)))
-
-    died = kout.died
-    rad_out = kout.rad_outT.T
-    radiance = kout.radianceT.T
-    trav = s.trav._replace(ptr=kout.ptr, pend=kout.pend, sp=kout.sp,
-                           t=kout.t, u=kout.u, v=kout.v, tri=kout.tri,
-                           found=kout.found)
-    sn = s._replace(
-        mode=kout.mode, trav=trav,
-        trav_o=kout.trav_oT.T, trav_d=kout.trav_dT.T,
-        path_o=kout.path_oT.T, path_d=kout.path_dT.T,
-        hit_t=kout.hit_t, hit_uv_bary=kout.hit_baryT.T,
-        hit_tri=kout.hit_tri,
-        pending=kout.pendingT.T, throughput=kout.throughputT.T,
-        rng=kout.rng, depth=kout.depth, max_roughness=kout.max_rough,
-        prev_pdf=kout.prev_pdf)
-
-    # ---- record-film append + work-queue regeneration: transcribed from
-    # _transition's record branch (keep the two in lockstep). ----
-    pix_local = s.pixel - jnp.asarray(pixel_base, jnp.int32)
-    k_slots = max(b >> config.film_k_shift, 1)
-    emit = died | s.rec_pending
-    if k_slots >= b:
-        accepted = emit
-    else:
-        rank_e = jnp.cumsum(emit.astype(jnp.int32)) - 1
-        accepted = emit & (rank_e < k_slots)
-    key = jnp.where(accepted, pix_local,
-                    npix_l + jnp.arange(b, dtype=jnp.int32))
-    if config.film_sort_perm:
-        ks, perm = jax.lax.sort(
-            (key, jnp.arange(b, dtype=jnp.int32)), num_keys=1)
-        p = perm[:k_slots]
-        r0, r1, r2 = (rad_out[:, 0][p], rad_out[:, 1][p], rad_out[:, 2][p])
-    else:
-        ks, r0, r1, r2 = jax.lax.sort(
-            (key, rad_out[:, 0], rad_out[:, 1], rad_out[:, 2]), num_keys=1)
-        r0, r1, r2 = r0[:k_slots], r1[:k_slots], r2[:k_slots]
-    rec_keys = jax.lax.dynamic_update_slice(
-        s.rec_keys, ks[:k_slots], (s.rec_cursor,))
-    rec_v0 = jax.lax.dynamic_update_slice(s.rec_v0, r0, (s.rec_cursor,))
-    rec_v1 = jax.lax.dynamic_update_slice(s.rec_v1, r1, (s.rec_cursor,))
-    rec_v2 = jax.lax.dynamic_update_slice(s.rec_v2, r2, (s.rec_cursor,))
-    rec_cursor = s.rec_cursor + jnp.sum(accepted.astype(jnp.int32))
-    rec_pending = emit & ~accepted
-
-    dead_now = kout.mode == MODE_DEAD
-    avail = dead_now & ~rec_pending
-    remaining = budget - s.queue_head
-    rank = jnp.cumsum(avail.astype(jnp.int32)) - 1
-    work_id = s.queue_head + rank
-    take = avail & (rank < remaining)
-    pixel_new = (work_id % npix_l).astype(jnp.uint32) + jnp.asarray(
-        pixel_base, jnp.uint32)
-    sample_new = (
-        (work_id // npix_l).astype(jnp.uint32)
-        + jnp.asarray(current_sample, jnp.uint32)
-        + jnp.asarray(sample_base, jnp.uint32)
-    )
-    queue_head = s.queue_head + jnp.minimum(
-        jnp.sum(avail.astype(jnp.int32)), remaining)
-    radiance_next = jnp.where(
-        (accepted | take)[:, None], 0.0,
-        jnp.where(rec_pending[:, None], rad_out, radiance))
-
-    rng_new = urng.seed(pixel_new, sample_new, params.seed_root)
-    coords, rng_new = ucamera.jittered_pixel_coords(pixel_new, config, rng_new)
-    o_new, d_new, rng_new = ucamera.get_screen_ray(coords, config, params,
-                                                   rng_new)
-    tk = take[:, None]
-    path_o = jnp.where(tk, o_new, sn.path_o)
-    path_d = jnp.where(tk, d_new, sn.path_d)
-    sn = sn._replace(path_o=path_o, path_d=path_d)
-    sn = _set_trav(sn, take, path_o, path_d, jnp.float32(FAR_PLANE), None)
-    new_mode = jnp.where(take, MODE_PRIMARY, kout.mode)
-
-    # bounce + shadow starts counted in-kernel (nray); regen starts here.
-    rays = s.rays + jnp.sum(kout.nray) + jnp.sum(take.astype(jnp.int32))
-
-    return sn._replace(
-        mode=new_mode,
-        radiance=radiance_next,
-        throughput=jnp.where(tk, 1.0, sn.throughput),
-        rng=jnp.where(take, rng_new, sn.rng),
-        pixel=jnp.where(take, pixel_new.astype(jnp.int32), s.pixel),
-        depth=jnp.where(take, 0, sn.depth),
-        max_roughness=jnp.where(take, 0.0, sn.max_roughness),
-        prev_pdf=jnp.where(take, 0.0, sn.prev_pdf),
-        lane_cap=jnp.where(take, 3 * (config.max_bounces + 2) + 32,
-                           kout.lane_cap),
-        queue_head=queue_head,
-        rays=rays,
-        rec_pending=rec_pending,
-        rec_keys=rec_keys,
-        rec_v0=rec_v0, rec_v1=rec_v1, rec_v2=rec_v2,
-        rec_cursor=rec_cursor,
-    )
-
-
 def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
                           current_sample, pool_size: int | None = None,
                           shard=None):
@@ -1210,20 +944,10 @@ def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
         pixel_base, npix_l, sample_base, spp_l = shard
         shard_t = (pixel_base, npix_l, sample_base)
     budget = npix_l * spp_l
-    # Auto pool: 96k measured optimal on the bench scene (round-12 sweep:
-    # 96k 13.27 s/pass vs 256k 14.57 vs 512k 15.10 — smaller pools raise
-    # occupancy 0.976 -> 0.993 now that per-wave kernels are cheap; 32k
-    # flips negative on per-wave fixed costs).
+    # Auto pool: 96k lanes (3 << 15), or the whole budget when smaller.
+    # Any pool size is legal: per-sample radiance is keyed on (pixel,
+    # sample) seeds, and the lanes just drain the same work queue.
     b = pool_size or config.pool_size or min(budget, 3 << 15)
-    if config.use_pallas_arrival or config.use_pallas_transition:
-        # Mosaic verifies (B,) operand layouts against XLA's T(1024)
-        # 1-D tiling: a pool not divisible by 1024 fails kernel layout
-        # verification on hardware (observed: 48x48 @ 2spp -> B=4608,
-        # "XLA layout {0:T(1024)} does not match Mosaic {0:T(512)}").
-        # Rounding up is radiometrically free — per-sample radiance is
-        # keyed on (pixel, sample) seeds, and extra lanes just drain the
-        # same work queue.
-        b = (b + 1023) & ~1023
     use_v2 = config.traversal == "wide2"
     use_v8 = config.traversal == "wide8"
     use_v16 = config.traversal == "wide16"
@@ -1318,35 +1042,14 @@ def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
 
     inst_w2l = scene.inst_w2l if scene.inst_w2l.shape[0] > 0 else None
 
+    has_inst = inst_w2l is not None
+
     te = getattr(config, "transition_every", TRANSITION_EVERY) or TRANSITION_EVERY
-
-    if config.use_pallas_arrival and use_v16:
-        from unity_webgpu_pathtracer_tpu.ops.pallas_arrival import MIN_BLK
-        use_pallas = b % MIN_BLK == 0
-    else:
-        use_pallas = False
-    if use_pallas:
-        from unity_webgpu_pathtracer_tpu.ops import pallas_arrival as _pa
-
-        # Compiled Mosaic only on real TPU; every other backend (CPU tests,
-        # GPU) runs the kernel in interpret mode (the pltpu.VMEM BlockSpecs
-        # would not compile there).
-        _interp = jax.default_backend() != "tpu"
-
-    from unity_webgpu_pathtracer_tpu.ops.pallas_transition import (
-        MIN_BLK as _PT_MIN_BLK,
-    )
-
-    use_pallas_trans = (_pallas_transition_supported(scene, config)
-                        and b % _PT_MIN_BLK == 0)
-    _pt_interp = jax.default_backend() != "tpu"
 
     def body(s: FusedState, attr_pair=None, nodes_c=None, env_rows_c=None):
         # nodes_c / env_rows_c (config.node_carry / env_carry): the same
-        # tables threaded through the while carry so XLA stages their
-        # gather layouts once at loop entry (the attr_carry pattern; the
-        # round-16 trace shows 2 of 8 node gathers compiling degenerate
-        # +20% and an env-row layout copy when closed over).
+        # tables threaded through the while carry instead of closed over
+        # (the attr_carry pattern).
         n16 = nodes_c if nodes_c is not None else (nodes16 if use_v16 else None)
         sc = scene
         if env_rows_c is not None:
@@ -1354,69 +1057,58 @@ def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
         inv = safe_rcp(s.trav_d)
         shadowing = (s.mode == MODE_SHADOW_ENV) | (s.mode == MODE_SHADOW_LIGHT)
         trav = s.trav
-        if use_pallas:
-            oT, dT, invT = s.trav_o.T, s.trav_d.T, inv.T
-            tik = getattr(config, "pallas_transpose_in_kernel", False)
-            if getattr(config, "arrival_fori", False):
-                # One arrival in HLO, iterated te times by a fori_loop:
-                # ~te-x smaller traversal graph (compile-wall lever); the
-                # runtime kernel sequence is identical.
-                def te_body(_i, tr):
-                    act = (s.mode != MODE_DEAD) & ~(shadowing & tr.found)
-                    return _pa.arrival_step16_pallas(
-                        n16, oT, dT, invT, tr, act, interpret=_interp,
-                        transpose_in_kernel=tik,
-                        has_instances=inst_w2l is not None)
+        # Named scopes give every layer's kernels a stable op_name prefix
+        # for the profiler-trace reduction (chip_smoke.py).
+        with jax.named_scope("arrival"):
+            if use_v16:
+                def arrive(tr):
+                    active = (s.mode != MODE_DEAD) & ~(shadowing & tr.found)
+                    return tw16.arrival_step16(n16, s.trav_o, s.trav_d, inv,
+                                               tr, active,
+                                               has_instances=has_inst)
 
-                trav = jax.lax.fori_loop(0, te, te_body, trav)
-            else:
+                if getattr(config, "arrival_fori", False):
+                    # One arrival in HLO, iterated te times by a fori_loop:
+                    # a ~te-x smaller traversal graph (compile-time lever);
+                    # the per-lane arithmetic is identical.
+                    trav = jax.lax.fori_loop(0, te, lambda _i, tr: arrive(tr),
+                                             trav)
+                else:
+                    for _ in range(te):
+                        trav = arrive(trav)
+                stepping = (s.mode != MODE_DEAD) & (s.trav.ptr >= 0)
+                trav_done = trav.ptr < 0
+            elif use_v8:
                 for _ in range(te):
                     active = (s.mode != MODE_DEAD) & ~(shadowing & trav.found)
-                    trav = _pa.arrival_step16_pallas(n16, oT, dT, invT,
-                                                     trav, active,
-                                                     interpret=_interp,
-                                                     transpose_in_kernel=tik,
-                                                     has_instances=inst_w2l is not None)
-            stepping = (s.mode != MODE_DEAD) & (s.trav.ptr >= 0)
-            trav_done = trav.ptr < 0
-        elif use_v16:
-            for _ in range(te):
+                    trav = tw8.arrival_step8(nodes8, s.trav_o, s.trav_d, inv,
+                                             trav, active,
+                                             has_instances=has_inst)
+                stepping = (s.mode != MODE_DEAD) & (s.trav.ptr >= 0)
+                trav_done = trav.ptr < 0
+            elif use_v2:
+                oct_ = octant_index(s.trav_d) % n_orders
+                base = oct_ * n_inner
+                skip_base = oct_ * n_leaf
+                for _ in range(te):
+                    active = (s.mode != MODE_DEAD) & ~(shadowing & trav.found)
+                    trav = tw2.node_step2(inner_flat, n_inner, base, s.trav_o,
+                                          s.trav_d, inv, trav, active, inst_w2l)
                 active = (s.mode != MODE_DEAD) & ~(shadowing & trav.found)
-                trav = tw16.arrival_step16(n16, s.trav_o, s.trav_d, inv,
-                                           trav, active,
-                                           has_instances=inst_w2l is not None)
-            stepping = (s.mode != MODE_DEAD) & (s.trav.ptr >= 0)
-            trav_done = trav.ptr < 0
-        elif use_v8:
-            for _ in range(te):
-                active = (s.mode != MODE_DEAD) & ~(shadowing & trav.found)
-                trav = tw8.arrival_step8(nodes8, s.trav_o, s.trav_d, inv,
-                                         trav, active,
-                                         has_instances=inst_w2l is not None)
-            stepping = (s.mode != MODE_DEAD) & (s.trav.ptr >= 0)
-            trav_done = trav.ptr < 0
-        elif use_v2:
-            oct_ = octant_index(s.trav_d) % n_orders
-            base = oct_ * n_inner
-            skip_base = oct_ * n_leaf
-            for _ in range(te):
-                active = (s.mode != MODE_DEAD) & ~(shadowing & trav.found)
-                trav = tw2.node_step2(inner_flat, n_inner, base, s.trav_o,
-                                      s.trav_d, inv, trav, active, inst_w2l)
-            active = (s.mode != MODE_DEAD) & ~(shadowing & trav.found)
-            trav = tw2.leaf_step2(leaf_geo, skip_flat, n_leaf, skip_base,
-                                  s.trav_o, s.trav_d, trav, active, inst_w2l)
-            stepping = (s.mode != MODE_DEAD) & tw2.live2(s.trav)
-            trav_done = ~tw2.live2(trav)
-        else:
-            oct_ = octant_index(s.trav_d) % n_orders
-            base = oct_ * n_nodes
-            for _ in range(te):
-                active = (s.mode != MODE_DEAD) & ~(shadowing & trav.found)
-                trav = arrival_step(nodes_flat, n_nodes, base, s.trav_o, s.trav_d,
-                                    inv, trav, active, inst_w2l)
-            stepping = (s.mode != MODE_DEAD) & (s.trav.ptr < n_nodes)
-            trav_done = trav.ptr >= n_nodes
+                trav = tw2.leaf_step2(leaf_geo, skip_flat, n_leaf, skip_base,
+                                      s.trav_o, s.trav_d, trav, active,
+                                      inst_w2l)
+                stepping = (s.mode != MODE_DEAD) & tw2.live2(s.trav)
+                trav_done = ~tw2.live2(trav)
+            else:
+                oct_ = octant_index(s.trav_d) % n_orders
+                base = oct_ * n_nodes
+                for _ in range(te):
+                    active = (s.mode != MODE_DEAD) & ~(shadowing & trav.found)
+                    trav = arrival_step(nodes_flat, n_nodes, base, s.trav_o,
+                                        s.trav_d, inv, trav, active, inst_w2l)
+                stepping = (s.mode != MODE_DEAD) & (s.trav.ptr < n_nodes)
+                trav_done = trav.ptr >= n_nodes
         s = s._replace(
             trav=trav,
             arrivals=s.arrivals
@@ -1424,34 +1116,27 @@ def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
             busy=s.busy + jnp.sum((s.mode != MODE_DEAD).astype(jnp.int32)),
             ticks=s.ticks + b,
         )
-        if use_pallas_trans:
-            s = _transition_pallas(sc, config, params, s, budget,
-                                   current_sample, trav_done, shard_t,
-                                   attr_pair=attr_pair,
-                                   interpret=_pt_interp)
-        else:
+        with jax.named_scope("transition"):
             s = _transition(sc, config, params, s, budget, current_sample,
                             trav_done, entry, shard_t, attr_pair=attr_pair)
         if use_v16 and config.use_prestep:
             # Fresh segments (regen/bounce/NEE shadow) all sit at the root;
             # descend their first level(s) gather-free (prestep16).
-            fresh = ((s.trav.ptr == 0) & (s.trav.pend == tw16.FULL)
-                     & (s.trav.sp == 0) & (s.mode != MODE_DEAD))
-            top3 = (scene.wide16_top3
-                    if getattr(config, "prestep_levels", 2) >= 3 else None)
-            s = s._replace(trav=tw16.prestep16(
-                n16, scene.wide16_top, s.trav_o, s.trav_d,
-                safe_rcp(s.trav_d), s.trav, fresh, top3=top3))
+            with jax.named_scope("prestep"):
+                fresh = ((s.trav.ptr == 0) & (s.trav.pend == tw16.FULL)
+                         & (s.trav.sp == 0) & (s.mode != MODE_DEAD))
+                top3 = (scene.wide16_top3
+                        if getattr(config, "prestep_levels", 2) >= 3 else None)
+                s = s._replace(trav=tw16.prestep16(
+                    n16, scene.wide16_top, s.trav_o, s.trav_d,
+                    safe_rcp(s.trav_d), s.trav, fresh, top3=top3))
         return s
 
     if lane_film:
-        # ONE flat while with the flush fused into every super-iteration.
-        # Periodic flushing via a nested while or a lax.cond BOTH
-        # de-optimize the fused gather+transpose layout (44.4 vs 12.0 ms
-        # of gather per super-iteration; cond variant 26.9 vs 16.3 s/pass
-        # measured) — on this platform the only cheap structure is a flat
-        # body.  The scatter itself is made cheap by DISTINCT out-of-bounds
-        # sentinels instead (see the flush_pix init).
+        # ONE flat while with the flush fused into every super-iteration
+        # (no nested while or lax.cond around the flush).  The scatter is
+        # kept cheap by DISTINCT out-of-bounds sentinels (see the
+        # flush_pix init).
         def body_flush(s, **table_kw):
             s = body(s, **table_kw)
             film = s.film.at[s.flush_pix].add(s.flush_rgb)
@@ -1466,10 +1151,8 @@ def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
         inner_body = body
     attr_mode = int(getattr(config, "attr_compact", 0) or 0)
     attr_carry = getattr(config, "attr_carry", False) and attr_mode in (2, 3)
-    # Carry-threaded tables: lets XLA stage each table's gather-friendly
-    # layout once at loop entry instead of per super-iteration (attr:
-    # copy.126 in the round-13 trace, 0.37 ms/super; nodes/env: the
-    # round-16 degenerate-gather + copy.117 findings).  Mode 3 carries
+    # Carry-threaded tables: lets XLA choose each table's gather layout
+    # once at loop entry instead of per super-iteration.  Mode 3 carries
     # its own (T/4, 16) u32 oct table the same way.
     carry_kw = []
     if attr_carry:

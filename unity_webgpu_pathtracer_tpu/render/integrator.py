@@ -2,10 +2,10 @@
 
 The correctness-reference integrator: the whole ray batch steps through the
 bounce loop together inside one ``lax.while_loop``, masked by an ``alive``
-lane predicate — the direct TPU analogue of the reference megakernel
-(``util/pathtrace.hlsl:10-131``).  The wavefront integrator
-(:mod:`unity_webgpu_pathtracer_tpu.render.wavefront`) is the
-performance path; both must agree within Monte-Carlo noise.
+lane predicate — the direct batched analogue of the reference megakernel
+(``util/pathtrace.hlsl:10-131``).  The fused wavefront integrator
+(:mod:`unity_webgpu_pathtracer_tpu.render.fused`) is the performance
+path; both must agree within Monte-Carlo noise.
 """
 
 from __future__ import annotations

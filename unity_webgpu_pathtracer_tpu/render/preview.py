@@ -3,7 +3,7 @@
 The reference ships a raster Disney-BRDF preview shader so materials can be
 inspected cheaply with the same property names and lobes
 (``Assets/Resources/Shaders/PathTracer.shader:146-216``, SURVEY.md L4).
-The TPU analogue: a single primary-visibility pass shaded with the SAME
+The batched analogue: a single primary-visibility pass shaded with the SAME
 ``eval_brdf`` the path tracer uses (full 5-lobe Disney), lit by one
 directional key light plus a hemispheric ambient — lobe-equivalent to the
 reference's ForwardBase pass, at a tiny fraction of a path-traced pass.

@@ -6,7 +6,7 @@ every camera change (``PathTracer.cs:211-222``); this module instead
 carries the converged history along with the camera, so a fly-cam keeps
 most of its accumulated samples and only disoccluded pixels restart.
 
-Method (standard backward reprojection, expressed as three dense TPU
+Method (standard backward reprojection, expressed as three dense device
 dispatches — two primary-visibility passes and one gather):
 
 1. ``primary_depth`` renders the hit distance ``t`` per pixel for BOTH
@@ -39,6 +39,7 @@ import jax.numpy as jnp
 from unity_webgpu_pathtracer_tpu.config import RenderConfig, RenderParams
 from unity_webgpu_pathtracer_tpu.ops import get_intersectors
 from unity_webgpu_pathtracer_tpu.render.film import Film
+from unity_webgpu_pathtracer_tpu.utils.math import matmul_f32
 
 
 def _center_rays(config: RenderConfig, params: RenderParams):
@@ -51,7 +52,7 @@ def _center_rays(config: RenderConfig, params: RenderParams):
     ip = params.cam_inv_proj
     dir_cam = uv[:, 0:1] * ip[:3, 0] + uv[:, 1:2] * ip[:3, 1] + ip[:3, 3]
     c2w = params.cam_to_world
-    d = dir_cam @ c2w[:3, :3].T
+    d = matmul_f32(dir_cam, c2w[:3, :3].T)
     d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
     o = jnp.broadcast_to(c2w[:3, 3], d.shape)
     return o, d
@@ -75,7 +76,7 @@ def _project_to_camera(P, config: RenderConfig, params: RenderParams):
     c2w = params.cam_to_world
     eye = c2w[:3, 3]
     rel = P - eye
-    cam = rel @ c2w[:3, :3]          # R^T @ rel, row-wise
+    cam = matmul_f32(rel, c2w[:3, :3])   # R^T @ rel, row-wise
     z = -cam[:, 2]
     front = z > 1e-6
     zs = jnp.where(front, z, 1.0)
@@ -99,7 +100,7 @@ def _warp(accum, count, t_new, t_old, o_new, d_new,
     # inline _project_to_camera on raw matrices (jit-friendly signature)
     eye = old_c2w[:3, 3]
     rel = P - eye
-    cam = rel @ old_c2w[:3, :3]
+    cam = matmul_f32(rel, old_c2w[:3, :3])
     z = -cam[:, 2]
     front = z > 1e-6
     zs = jnp.where(front, z, 1.0)

@@ -1,10 +1,11 @@
-"""Wavefront path tracing with path regeneration — the TPU-native integrator.
+"""Wavefront path tracing with path regeneration — the staged integrator.
 
 The reference started (and abandoned) a wavefront refactor
 (``Assets/Resources/wavefront/`` — dead code, SURVEY.md §2.3); this module
-realizes that design the way a TPU wants it.  The key observation: on TPU a
-masked-off lane still burns VPU cycles, so *compaction alone buys nothing* —
-the pool must be **refilled**.  A fixed-size ray pool steps through bounces;
+realizes that design for batched execution, superseded in production by
+:mod:`render.fused`.  The key observation: in a batched program a
+masked-off lane still costs its share of every op, so *compaction alone
+buys nothing* — the pool must be **refilled**.  A fixed-size ray pool steps through bounces;
 every iteration, lanes whose path terminated (miss / light hit / absorbed /
 Russian roulette / bounce budget) splat their radiance into the film with a
 scatter-add and are immediately reloaded with the next (pixel, sample) from

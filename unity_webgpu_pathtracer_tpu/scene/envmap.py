@@ -25,12 +25,10 @@ from unity_webgpu_pathtracer_tpu.utils.math import INV_PI, INV_TWO_PI, PI, TWO_P
 class EnvMap(NamedTuple):
     """Device-resident environment data (pytree).
 
-    ``alias_row`` and ``quad_rows`` are gather-merged tables: on this TPU a
-    gather OP costs ~2 ms + B*marginal regardless of table size
-    (docs/PERFORMANCE.md round-2 campaign), so NEE env sampling bakes
-    everything one sample needs into a single row (1 gather instead of 6),
-    and sky eval bakes the 2x2 bilinear footprint per texel (1 instead
-    of 4)."""
+    ``alias_row`` and ``quad_rows`` are gather-merged tables: NEE env
+    sampling bakes everything one sample needs into a single row (1
+    gather instead of 6), and sky eval bakes the 2x2 bilinear footprint
+    per texel (1 instead of 4)."""
 
     image: jnp.ndarray       # (H, W, 3) float32 linear radiance
     cdf: jnp.ndarray         # (H*W,) inclusive prefix sum of luminance
@@ -46,8 +44,7 @@ class EnvMap(NamedTuple):
 
 def _build_alias(weights: np.ndarray):
     """Vose alias table: O(1) categorical sampling (2 gathers on device,
-    replacing the CDF binary search whose ~15 dependent gathers dominate on
-    TPU)."""
+    replacing the CDF binary search's ~15 dependent gathers)."""
     k = weights.size
     p = weights.astype(np.float64)
     total = p.sum()
@@ -282,18 +279,14 @@ def sample_env_transition(env: EnvMap, rotation, directions, want_alias, state,
 
     ``need`` (optional bool mask): lanes whose result is actually consumed
     this transition.  When given, the other lanes' gather index is clamped
-    to row 0 (cache-hot) — the gather unit prices index entropy, not row
-    count (``RenderConfig.mask_stale_gathers``).  Callers must only pass a
+    to row 0 (cache-hot), so those lanes' reads cost no cold fetch
+    (``RenderConfig.mask_stale_gathers``).  Callers must only pass a
     mask that covers every lane whose sky_*/nee_* output feeds the film.
 
     ``split`` (``RenderConfig.env_split_rows``): extract every field from
-    the TRANSPOSED row — a contiguous (B,) sublane slice of the
-    {0,1}-layout gather result — instead of strided ``[B, j]`` columns,
-    which XLA lowers to 16-iteration slice loops (the round-2
-    column-extract pathology; the round-20 trace prices the alias-index
-    extract alone at 70 us/super, plus a 40 us duplicated row-major layout
-    copy).  Per-element values and op order are identical — films are
-    bit-identical.
+    the TRANSPOSED row — a contiguous (B,) slice of the gather result —
+    instead of strided ``[B, j]`` columns.  Per-element values and op
+    order are identical — films are bit-identical.
 
     Returns ``(sky_color, sky_pdf, nee_dir, nee_color, nee_pdf, state)`` —
     sky_* valid on ~want_alias lanes, nee_* on want_alias lanes.
@@ -336,11 +329,10 @@ def sample_env_transition(env: EnvMap, rotation, directions, want_alias, state,
 
     if split:
         # All extracts off the transposed row: each field is a contiguous
-        # (B,) slice (the transpose fuses into the gather, whose {0,1}
-        # output the kernel-feed path wants anyway).  The bitcast rides
-        # the full-width (B,) vector — same data-movement-only path the
-        # unsplit [B, 1] column took (integer bit patterns must never
-        # enter f32 COMPUTE lowering: the TPU denormal-flush rule).
+        # (B,) slice.  The bitcast rides the full-width (B,) vector — the
+        # same data-movement-only path the unsplit [B, 1] column took
+        # (integer bit patterns must never enter f32 arithmetic, where a
+        # backend may flush them as denormals).
         rowT = row.T                                            # (20, B)
         take_alias = u2 >= rowT[0]
         alias_idx = jax.lax.bitcast_convert_type(rowT[1], jnp.int32)

@@ -30,9 +30,8 @@ def _z(*shape, dtype=jnp.float32):
 def _pack_attr_shade(normals9: np.ndarray, uvs6: np.ndarray,
                      material: np.ndarray) -> np.ndarray:
     """Per-triangle shading rows [normals 9 | uvs 6 | material(int) 1],
-    grouped THREE triangles per 192-byte device row: the TPU gather unit
-    prices 64-byte rows at ~38 ns/row but 192-byte rows at ~18 ns/row
-    (experiments/round3_gather.py), so triangle ``t`` lives in row ``t//3``
+    grouped THREE triangles per 192-byte device row (one wide gather
+    instead of three narrow ones): triangle ``t`` lives in row ``t//3``
     at sub-slot ``t%3`` and the consumer selects the 16-float slice."""
     t = normals9.shape[0]
     flat = np.zeros((t, 16), np.float32)
@@ -49,20 +48,14 @@ def _pack_attr_shade_c(normals9: np.ndarray, uvs6: np.ndarray,
                        material: np.ndarray) -> np.ndarray:
     """Compact 32-byte per-triangle shading rows: 15 f16 halfwords
     [normals 9 | uvs 6] + one u16 material index, little-endian-packed
-    into 8 uint32 words.  At 1M-tri scale the random attr gather prices
-    by TABLE BYTES (64 MB -> 24 ns/row, 32 MB -> 16-18;
-    experiments/round11_attrsort.py), so halving the row halves the
-    footprint; precision cost is ~1e-3 on unit normals and ~5e-4 on uvs
-    (≤1 texel at 2k).  Consumed by the fused integrator when
-    ``config.attr_compact`` is set.
+    into 8 uint32 words.  Halving the row halves the table footprint the
+    random attr gather reads from; precision cost is ~1e-3 on unit
+    normals and ~5e-4 on uvs (≤1 texel at 2k).  Consumed by the fused
+    integrator when ``config.attr_compact`` is set.
 
     Stored (T_pad, 8); the production mode-2 path reshapes to (T_pad/2,
-    16) INSIDE the render loop.  That reshape shows up in xprof as a
-    0.37 ms/super table copy (``copy.126``, layout {0,1} into memory
-    space S(1)) — but it is LOAD-BEARING: XLA is staging the table into
-    an alternate-memory, gather-friendly layout each super-iteration,
-    and pre-pairing the stored table to skip it measured 32% SLOWER
-    end-to-end (14.4 -> 19.0 s/pass).  Do not "optimize" it away."""
+    16) inside the render loop (or once, at loop entry, with
+    ``config.attr_carry``)."""
     t = normals9.shape[0]
     # Pad to a multiple of 6 triangles so rows pair cleanly.
     h = np.zeros((((t + 5) // 6) * 6, 16), np.uint16)
@@ -125,12 +118,8 @@ def _pack_attr_shade_o(normals9: np.ndarray, material: np.ndarray) -> np.ndarray
     """Ultra-compact 16-byte per-triangle shading rows for UNTEXTURED
     scenes: three 16-bit-octahedral vertex normals + the material index,
     4 u32 words per triangle, FOUR triangles per stored 64-byte row (the
-    gathered row width the unit prices well — attr_compact mode 1's
-    32-byte rows measured WORSE than mode 2's 64-byte ones despite half
-    the footprint).  Quarter the mode-2 footprint: 16 MB at 1M tris,
-    under the random-gather table-footprint knee
-    (experiments/round11_attrsort.py: 32 MB -> 16.2 ns/row, cache-side
-    -> ~6-8).  uv is NOT stored: with ``has_textures=False`` the
+    same gathered row width as mode 2).  Quarter the mode-2 footprint:
+    16 MB at 1M tris.  uv is NOT stored: with ``has_textures=False`` the
     interpolated uv feeds nothing (derive_material only reads it for
     texture fetches), so the fused integrator's mode-3 path statically
     requires untextured configs.
@@ -170,17 +159,13 @@ class SceneData(NamedTuple):
 
     # Packed per-triangle shading rows [normals 9 | uvs 6 | material(int) 1]
     # x3 triangles per row: the fused integrator's transitions fetch ONE
-    # 192-byte row instead of three separate gathers, and the 3-per-row
-    # grouping rides the gather unit's wide-row sweet spot (~18 vs ~38
-    # ns/row for 64-byte rows, experiments/round3_gather.py).
+    # 192-byte row instead of three separate gathers.
     attr_shade: jnp.ndarray = _z(1, 48)       # (ceil(T/3), 48) float32
 
     # Compact half of the same table: 32-byte rows (15 f16 + u16 material
-    # packed into 8 u32 words, one triangle per row).  At 1M-tri scale the
-    # random gather prices by table footprint (64 MB -> ~24 ns/row, 32 MB
-    # -> ~16-18; experiments/round11_attrsort.py), so the integrator reads
-    # this when ``config.attr_compact`` is set.  The production mode-2
-    # consumer reshapes to (-1, 16) in-loop — a measured WIN, see
+    # packed into 8 u32 words, one triangle per row), half the footprint;
+    # the integrator reads this when ``config.attr_compact`` is set.  The
+    # production mode-2 consumer reshapes to (-1, 16), see
     # ``_pack_attr_shade_c``.
     # (placeholder is (2, 8) so the mode-2 (-1, 16) reshape stays valid)
     attr_shade_c: jnp.ndarray = _z(2, 8, dtype=jnp.uint32)  # (6*ceil(T/6), 8)
@@ -204,14 +189,13 @@ class SceneData(NamedTuple):
     wide_nodes: jnp.ndarray = _z(1, 1, 48)    # (O, N4, 48) float32
 
     # 8-wide quantized stack format (accel.wide8 / ops.traverse_wide8) —
-    # the round-2 production format: ~2.4x smaller table and far fewer
-    # arrivals per ray than the skip-chain formats.
+    # the mid-tier format: ~2.4x smaller table and far fewer arrivals per
+    # ray than the skip-chain formats.
     wide8_nodes: jnp.ndarray = _z(1, 48)      # (N8, 48) float32
 
     # 16-wide quantized stack format (accel.wide16 / ops.traverse_wide16)
-    # — the round-3 production format: 384-byte rows gather at the same
-    # ~17 ns/row as 192-byte ones, so doubling node width and leaf count
-    # halves arrivals per ray for free (experiments/round3_gather.py).
+    # — the production format: doubling node width and leaf count over
+    # wide8 halves arrivals per ray.
     wide16_nodes: jnp.ndarray = _z(1, 96)     # (N16, 96) float32
 
     # Slot-indexed decode of the root's 16 children ((16, 119), see
@@ -220,15 +204,14 @@ class SceneData(NamedTuple):
     wide16_top: jnp.ndarray = _z(1, 119)
 
     # Level-3 slot table as 3 bf16 limbs ((3, 256, 119), see
-    # accel.wide16.derive_top3_limbs): a bit-exact one-hot MXU matmul
+    # accel.wide16.derive_top3_limbs): a bit-exact one-hot matmul
     # gather for prestep level 3; (3, 1, 119) placeholder disables it.
     wide16_top3: jnp.ndarray = _z(3, 1, 119)
 
     # Stack planes the wide8/wide16 register-stack traversal needs for THIS
     # scene: the SHAPE is the actual tree depth + margin (static), so the
     # (D, B) stack arrays and their per-arrival top-reads scale with the
-    # real tree (~10-12 planes at 1M tris) instead of the format cap (24) —
-    # the fixed-cap top-read slice+reduce profiled 0.54 ms/arrival.
+    # real tree (~10-12 planes at 1M tris) instead of the format cap (24).
     stack_levels: jnp.ndarray = _z(24, dtype=jnp.int32)
 
     # Split-table variant (accel.wide2 / ops.traverse_wide2): hot internal

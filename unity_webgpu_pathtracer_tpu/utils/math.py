@@ -1,8 +1,8 @@
 """Batched vector math for the render path.
 
 All functions operate on arrays whose *last* axis is the vector axis (shape
-``(..., 3)``), so every op vectorizes over the ray batch on the VPU lanes and
-fuses under ``jit``.  Semantics mirror the reference's HLSL helpers in
+``(..., 3)``), so every op vectorizes over the ray batch and fuses under
+``jit``.  Semantics mirror the reference's HLSL helpers in
 ``Assets/Resources/util/common.hlsl`` (luminance :195, ONB :343-384,
 concentric disk :285-341) without translating its scalar control flow —
 branches become ``jnp.where`` selects.
@@ -10,6 +10,7 @@ branches become ``jnp.where`` selects.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 EPSILON = 1.0e-4
@@ -25,9 +26,9 @@ def dot(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Batched dot product over the last axis, keeps no dims.
 
     3-wide dots are written in component form: a ``reduce`` over the minor
-    axis ends an XLA fusion, and the production transition contained ~60 of
-    them — each became its own ~90 us kernel launch (the round-4 profile's
-    "tail").  Component adds are plain elementwise ops and fuse freely."""
+    axis can end an XLA fusion, and the production transition contains
+    dozens of them.  Component adds are plain elementwise ops and fuse
+    freely."""
     p = a * b
     if p.shape[-1] == 3:
         return p[..., 0] + p[..., 1] + p[..., 2]
@@ -171,18 +172,21 @@ def face_forward(normal: jnp.ndarray, direction: jnp.ndarray) -> jnp.ndarray:
     return jnp.where(dot1(normal, direction) <= 0.0, normal, -normal)
 
 
+def matmul_f32(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
+    """``a @ b`` in full f32: never TF32 or bf16 passes, whatever the
+    backend's default matmul precision."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 def gather_small(table: jnp.ndarray, idx: jnp.ndarray,
                  max_onehot: int = 64) -> jnp.ndarray:
     """Row gather that routes small tables through a one-hot matmul.
 
-    On this TPU an XLA gather op costs ~2 ms + B*marginal even when the
-    table is tiny (docs/PERFORMANCE.md round-2 campaign); a one-hot
-    (B, M) @ (M, W) matmul on the MXU is ~free for M <= 64 and bit-exact
-    at HIGHEST precision (bf16x3 reproduces the f32 mantissa; the one-hot
-    side is exact 0/1).
+    A one-hot (B, M) @ (M, W) matmul replaces the gather for M <= 64; it
+    is bit-exact at HIGHEST precision (the f32 product keeps every
+    mantissa bit; the one-hot side is exact 0/1).  Whether it beats a
+    plain gather on the GPU is not measured.
     """
-    import jax
-
     m = table.shape[0]
     if m > max_onehot:
         return table[idx]
